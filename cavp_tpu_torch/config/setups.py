@@ -1,9 +1,9 @@
-"""Per-setup configuration: the fields the avss eval slice reads.
+"""Per-setup configuration: the fields the ported avss slices read.
 
 Mirrors ``cavp_tpu/config/setups.py``: the same field names, defaults
-and ``get_config`` dispatch, cut to what the ported slice uses. Fields
-of the train path, the data roots and the TPU-only knobs come with the
-PRs that port their code.
+and ``get_config`` dispatch, cut to what the eval, serving and train
+steps use. The data roots, the logging fields and the TPU-only knobs
+come with the PRs that port their code.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import List
 
 @dataclass
 class Config:
-    """One eval setup. Defaults follow ``config/config_avss.py``."""
+    """One setup. Defaults follow ``config/config_avss.py``."""
 
     setup: str = "avss"
     seed: int = 666
@@ -41,11 +41,38 @@ class Config:
     audio_backbone: str = "vgg"
     in_plane: int = 1  # audio input channels
 
+    # --- optimisation ---
+    lr: float = 1e-3
+    lr_power: float = 0.9
+    batch_size: int = 16
+    epochs: int = 60
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    warm_up_epoch: int = 0
+    steps_per_epoch: int = 1000
+    corocl_w: float = 1.0  # the reference adds l_ctr_av unweighted
+    cl_temp: float = 0.1
+    max_view: int = 512
+    ow_rate: float = 0.5
+    class_slots: int = 16  # static per-batch class budget of the CoroCL sampler
+
+    # --- runtime ---
+    gpus: int = 1   # data-parallel workers; scales the sound bank's depth
+    nodes: int = 1
+    avsbench_split: str = "all"
+    # exact audio-tower dedup on the train path (VGG tower, no BatchNorm):
+    # the tower runs on B + floor(B*ow_rate) clips and the shuffled half
+    # is a feature gather
+    audio_dedup: bool = True
+
     # --- precision / kernels ---
     compute_dtype: str = "bfloat16"  # dtype of conv/matmul activations
     # the fusion stage (projector + patch embeds + sigmoid-CA block +
     # final norm) through the hand-written CUDA kernel on the eval path
     use_pallas_fusion: bool = False
+    # the train step's dup=2 fusion stage through the hand-written CUDA
+    # forward and backward kernels (``ops/kernels/fusion_train.py``)
+    use_pallas_fusion_train: bool = False
 
     @property
     def mel_frames(self) -> int:

@@ -7,6 +7,11 @@ reference's state-dict names out. Layouts: conv HWIO -> OIHW, dense
 batch stats -> ``weight``/``bias``/``running_mean``/``running_var``.
 BatchNorm's ``num_batches_tracked`` (which the JAX package does not
 track) is set to 0, so the result loads with ``strict=True``.
+
+Training adds :func:`named_tensors_from_jax`, which names any tree shaped
+like the params (gradients, parameter deltas) the same way and in the
+port's layouts, :func:`sound_bank_from_jax`, and
+:func:`gradients_by_name` for the port's side of a per-leaf comparison.
 """
 
 from __future__ import annotations
@@ -81,28 +86,51 @@ def _module_name(path: str) -> Optional[str]:
     return None
 
 
-def state_dict_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any]
-                        ) -> Dict[str, torch.Tensor]:
-    """JAX ``variables["params"]`` / ``["batch_stats"]`` (nested dicts of
-    arrays) -> the port's state dict (float32 CPU tensors).
+def named_tensors_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A nested dict of arrays under flax paths (params, batch stats,
+    or anything shaped like them: gradients, deltas) -> float32 CPU
+    tensors under the port's state-dict names, in the port's layouts:
+    conv kernels HWIO -> OIHW, dense kernels [in, out] -> [out, in].
 
     Raises ``KeyError`` for a leaf outside the DeepLabV3Plus + VGG
     grammar, so nothing is dropped silently."""
     out: Dict[str, torch.Tensor] = {}
-    for tree in (params, batch_stats):
-        for path, value in _flatten(tree):
-            value = np.array(value, np.float32)  # a writable copy
-            if path.startswith("cross_att.pos_embed"):
-                out[path] = torch.from_numpy(value)
-                continue
-            mod, leaf = path.rsplit(".", 1)
-            name = _module_name(mod)
-            if name is None or leaf not in _LEAF:
-                raise KeyError(f"no port name for JAX variable {path!r}")
-            if leaf == "kernel":
-                value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
-            out[f"{name}.{_LEAF[leaf]}"] = torch.from_numpy(
-                np.ascontiguousarray(value))
-            if leaf == "mean":
-                out[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    for path, value in _flatten(tree):
+        value = np.array(value, np.float32)  # a writable copy
+        if path.startswith("cross_att.pos_embed"):
+            out[path] = torch.from_numpy(value)
+            continue
+        mod, leaf = path.rsplit(".", 1)
+        name = _module_name(mod)
+        if name is None or leaf not in _LEAF:
+            raise KeyError(f"no port name for JAX variable {path!r}")
+        if leaf == "kernel":
+            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+        out[f"{name}.{_LEAF[leaf]}"] = torch.from_numpy(np.ascontiguousarray(value))
     return out
+
+
+def state_dict_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any]
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX ``variables["params"]`` / ``["batch_stats"]`` (nested dicts of
+    arrays) -> the port's state dict (float32 CPU tensors)."""
+    out = named_tensors_from_jax(params)
+    out.update(named_tensors_from_jax(batch_stats))
+    for name in [k for k in out if k.endswith(".running_mean")]:
+        out[name[:-len("running_mean")] + "num_batches_tracked"] = \
+            torch.zeros((), dtype=torch.long)
+    return out
+
+
+def sound_bank_from_jax(bank, device="cpu") -> torch.Tensor:
+    """The JAX train state's ``sound_bank`` [classes, depth, samples] as
+    a float32 tensor."""
+    return torch.from_numpy(np.array(bank, np.float32)).to(device)
+
+
+def gradients_by_name(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """{parameter name: gradient} after a backward pass, zeros where a
+    parameter got none (autograd leaves ``None`` for unused ones; the JAX
+    package reports zeros)."""
+    return {name: (torch.zeros_like(p) if p.grad is None else p.grad.detach().clone())
+            for name, p in model.named_parameters()}

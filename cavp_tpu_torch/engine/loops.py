@@ -1,17 +1,23 @@
-"""The eval step and its forwards (``cavp_tpu/engine/loops.py``, eval half).
+"""The train step, the eval step and its forwards
+(``cavp_tpu/engine/loops.py``).
 
+- :func:`make_train_step`: the avss train step: the CoroCL batch
+  construction (shuffle, overwrite-miss-match, SoundBank FIFO, matched and
+  shuffled audio over one visual batch), CE + CoroCL, backward, and the
+  multi-group SGD/Adam update;
 - :func:`make_inference_forward`: logits for the serving path;
 - :func:`make_eval_pred_forward`: the int32 argmax mask the metrics read;
 - :func:`make_eval_step`: the batched validation step over padded frame
   stacks with a validity mask, MIoU and ForegroundDetect accumulators
   for ALL frames and the multi-source subset carried on the device.
 
-With ``config.use_pallas_fusion`` the fusion stage runs through the
+With ``config.use_pallas_fusion`` the eval fusion stage runs through the
 CUDA kernel (:mod:`cavp_tpu_torch.ops.kernels.fusion`) between
 ``forward_visual_feature``/``forward_audio_feature`` and
-``forward_cls``, as the JAX package wires its Pallas kernel. The
-upsample and argmax stay plain (the JAX path with
-``use_pallas_argmax=False``).
+``forward_cls``, as the JAX package wires its Pallas kernel; with
+``config.use_pallas_fusion_train`` the train step's does, forward and
+backward (:mod:`cavp_tpu_torch.ops.kernels.fusion_train`). The upsample
+and argmax stay plain (the JAX path with ``use_pallas_argmax=False``).
 
 The returned functions take and return the JAX package's layouts:
 images [N, H, W, 3], log-mels [N, T, 64, C], logits [N, H, W, classes],
@@ -20,7 +26,7 @@ masks [N, H, W] int32.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -34,13 +40,179 @@ from cavp_tpu_torch.metrics import (
     miou_result,
     miou_update_weighted,
 )
+from cavp_tpu_torch.device import resolve_device
+from cavp_tpu_torch.engine.state import TrainState
+from cavp_tpu_torch.losses import corocl_loss, cross_entropy
 from cavp_tpu_torch.models.cavp import map_to_tokens, tokens_to_map
+from cavp_tpu_torch.models.soundbank import (
+    overwrite_from_bank,
+    overwrite_miss_match,
+    update_bank,
+)
 from cavp_tpu_torch.ops.kernels.fusion import fused_visual_fusion
+from cavp_tpu_torch.ops.kernels.fusion_train import fusion_train
 
 
 def preprocess_audio(wave: torch.Tensor, **kw) -> torch.Tensor:
     """Trainer mel: [N, C, L] -> [N, T, 64, C] (the JAX layout)."""
     return _preprocess_nchw(wave, **kw).permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# Train
+# ---------------------------------------------------------------------------
+
+
+def make_train_step(model, optimizers, config, *, variant: str = "avss") -> Callable:
+    """Returns train_step(state, batch, epoch) -> (state, metrics).
+
+    batch: tensors on the model's device: image [B,H,W,3] (normalized),
+    waveform [B,Ca,L], pix_label [B,H,W] int, img_label [B,classes] int
+    multi-hot. ``epoch`` (int or 0-dim tensor) gates the overwrite: it is
+    live from epoch 1 on, decided inside the step.
+
+    The state is updated in place (module, optimizers) and returned with
+    the new step count and sound bank. ``metrics`` are 0-dim tensors under
+    the JAX package's keys; nothing in the step waits for the device.
+
+    A test can fix every draw through the batch: ``shuffle_idx`` [B], the
+    uniform scores ``ow_scores`` [B] of the overwrite and
+    ``corocl_scores`` [class_slots + 2, B*h*w] of the CoroCL sampler, and
+    a precomputed ``mel`` ([2B,T,64,Ca], matched then shuffled). Without
+    them the draws come from ``state.generator``.
+    """
+    if variant != "avss":
+        raise NotImplementedError(
+            f"variant {variant!r} is not ported yet: the baseline and the vpo "
+            "steps come with the variants (ROADMAP P8)")
+    if getattr(config, "extra_losses", None):
+        raise NotImplementedError(
+            "extra_losses are not ported yet (ROADMAP P10)")
+    n_frames = config.mel_frames
+    plain_avss = config.avsbench_split == "all" and config.setup != "avss_binary"
+    use_wave_bank = plain_avss
+    use_overwrite = plain_avss
+    use_fused_fusion = (config.use_pallas_fusion_train
+                        and getattr(model, "seg_model", "") == "DeepLabV3Plus")
+    dedup_audio = config.audio_backbone == "vgg" and config.audio_dedup
+
+    def train_step(state: TrainState, batch, epoch) -> Tuple[TrainState, Dict]:
+        if state.model is not model or state.optimizers is not optimizers:
+            raise ValueError("the state belongs to another model or optimizer")
+        image = batch["image"]
+        waveform = batch["waveform"]
+        pix_label = batch["pix_label"]
+        img_label = batch["img_label"]
+        B = image.shape[0]
+        dev = image.device
+        gen = state.generator
+        ow_flag = torch.as_tensor(epoch, device=dev) >= 1
+
+        # --- shuffle batch construction ---
+        if "shuffle_idx" in batch:
+            shuffle_idx = batch["shuffle_idx"].long()
+        else:
+            shuffle_idx = torch.randperm(B, generator=gen, device=dev)
+        shuffle_img_label = img_label[shuffle_idx]
+        if_match = (img_label == shuffle_img_label).all(dim=1)
+        shuffle_wave = waveform[shuffle_idx]
+
+        sound_bank = state.sound_bank
+        sound_bank_pre = sound_bank  # the overwrite reads the pre-update bank
+        change_mask = torch.zeros(B, dtype=torch.bool, device=dev)
+        target_class = torch.zeros(B, dtype=torch.long, device=dev)
+        if use_overwrite:
+            ow = overwrite_miss_match(if_match, shuffle_img_label, img_label,
+                                      config.ow_rate, scores=batch.get("ow_scores"),
+                                      generator=gen, enabled=ow_flag)
+            if_match = ow.if_match
+            if use_wave_bank:
+                change_mask = ow.change_mask & ow_flag
+                target_class = ow.target_class
+                shuffle_wave = overwrite_from_bank(
+                    sound_bank, shuffle_wave.reshape(B, -1), change_mask,
+                    target_class).reshape(shuffle_wave.shape)
+        if use_wave_bank:
+            sound_bank = update_bank(sound_bank, waveform.reshape(B, -1), img_label)
+
+        # --- the audio batch. The VGG tower is per clip (no BatchNorm) and
+        # the shuffled half is a permutation of the matched one except for
+        # the at most floor(B*ow_rate) bank-overwritten rows: the tower
+        # runs on B + K clips and the shuffled half is a feature gather.
+        audio_gather_idx = None
+        if "mel" in batch:
+            audio = batch["mel"]  # [2B, ...]: the 2B convention
+        else:
+            if dedup_audio:
+                K = (min(B, int(B * config.ow_rate))
+                     if (use_overwrite and use_wave_bank) else 0)
+                if K > 0:
+                    # changed rows first, in batch order; slot j holds the
+                    # j-th overwritten row's bank waveform
+                    slots = torch.sort((~change_mask).long(), stable=True).indices[:K]
+                    bank_wave = sound_bank_pre[target_class[slots], 0]
+                    input_wave = torch.cat(
+                        [waveform, bank_wave.reshape((K,) + tuple(waveform.shape[1:]))])
+                    rank = change_mask.long().cumsum(0) - 1
+                    audio_gather_idx = torch.where(change_mask, B + rank.clamp(0, K - 1),
+                                                   shuffle_idx)
+                else:
+                    input_wave = waveform
+                    audio_gather_idx = shuffle_idx
+            else:
+                input_wave = torch.cat([waveform, shuffle_wave])
+            audio = preprocess_audio(input_wave, n_frames=n_frames,
+                                     spec_min=config.spec_min, spec_max=config.spec_max)
+
+        # the shuffled pair's ground truth: the matched one where it matches
+        gt_shuffle = torch.where(if_match[:, None, None], pix_label,
+                                 torch.zeros_like(pix_label))
+
+        # --- forward (NCHW inside) ---
+        optimizers.zero_grad()
+        model.train()
+        image_nchw = image.permute(0, 3, 1, 2)
+        audio_nchw = audio.permute(0, 3, 1, 2)
+        if use_fused_fusion:
+            fea_v = model.forward_visual_feature(image_nchw)
+            fea_a = model.forward_audio_feature(audio_nchw)
+            if audio_gather_idx is not None:
+                fea_a = torch.cat([fea_a[:B], fea_a[audio_gather_idx]], dim=0)
+            h, w = fea_v.shape[-2:]
+            # CAVP pins its cross-attention at 4 heads
+            tokens = fusion_train(model, map_to_tokens(fea_v), fea_a, num_heads=4)
+            fused2b = tokens_to_map(tokens, h, w)
+            head_in = fused2b[:B] if model.cls_matched_only else fused2b
+            logits2b = model.forward_cls(head_in, image_nchw.shape[-2:])
+        else:
+            logits2b, fused2b, _ = model(image_nchw, audio_nchw, eval_mode=False,
+                                         audio_gather_idx=audio_gather_idx)
+        output = logits2b[:B].permute(0, 2, 3, 1)
+        embeds = fused2b.permute(0, 2, 3, 1)  # [2B, h, w, C], a view
+        l_ce = cross_entropy(output, pix_label)
+        l_ctr, aux = corocl_loss(
+            embeds[:B], pix_label, embeds[B:], gt_shuffle,
+            num_classes=config.num_classes, temperature=config.cl_temp,
+            max_views=config.max_view, class_slots=config.class_slots,
+            scores=batch.get("corocl_scores"), generator=gen)
+        loss = l_ce + config.corocl_w * l_ctr
+
+        # --- backward and both optimizers ---
+        loss.backward()
+        optimizers.step(state.step)
+
+        state.step += 1
+        state.sound_bank = sound_bank
+        metrics = {"loss/loss": loss.detach(), "loss/cross_entropy": l_ce.detach(),
+                   "loss/l_ctr_av": l_ctr.detach(), **aux}
+        return state, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Eval (AVSS validation: MIoU + ForegroundDetect, ALL + MS subsets)
+# ---------------------------------------------------------------------------
 
 
 class EvalMetrics(NamedTuple):
@@ -50,7 +222,9 @@ class EvalMetrics(NamedTuple):
     fg_ms: torch.Tensor
 
 
-def eval_metrics_init(num_classes: int, device="cpu") -> EvalMetrics:
+def eval_metrics_init(num_classes: int, device=None) -> EvalMetrics:
+    """Zeroed accumulators on ``device`` (default: the CUDA card)."""
+    device = resolve_device(device)
     return EvalMetrics(miou_all=miou_init(num_classes, device),
                        miou_ms=miou_init(num_classes, device),
                        fg_all=fg_init(num_classes, device),

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from cavp_tpu_torch.config.setups import Config
+from cavp_tpu_torch.device import resolve_device
 from cavp_tpu_torch.engine.loops import make_inference_forward, preprocess_audio
 from cavp_tpu_torch.engine.runner import build_model
 
@@ -64,14 +65,15 @@ class Predictor:
     Without ``state_dict`` the weights are drawn from ``config.seed``;
     with one (reference names, e.g. from
     :func:`cavp_tpu_torch.engine.convert.state_dict_from_jax`) it is
-    loaded strictly.
+    loaded strictly. ``device=None`` is the CUDA card; the CPU has to be
+    asked for.
     """
 
-    def __init__(self, config: Config, device="cpu",
+    def __init__(self, config: Config, device=None,
                  batch_sizes: Sequence[int] = (8,),
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None):
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)  # None: the CUDA card
         self.batch_sizes = sorted(batch_sizes)
         self.model = build_model(config, self.device)
         if state_dict is not None:

@@ -1,4 +1,4 @@
-"""Cross-modal sigmoid attention fusion at eval (``cavp_tpu/models/attn.py``).
+"""Cross-modal sigmoid attention fusion (``cavp_tpu/models/attn.py``).
 
 - attention weights are **sigmoid**, not softmax;
 - q/k/v projections have no bias;
@@ -14,6 +14,11 @@ q and output projections fold into per-image ``[C, heads]`` and
 
     gate[t, h] = sigmoid(x_q[t] @ (Wq_h @ k_h) * hd**-0.5)
     out[t]     = gate[t] @ (v_h @ Wp_h) + bp
+
+On the train path (``dup=2``) one visual batch B meets the matched and
+the shuffled audio batch, 2B tokens: ``norm1`` and the query side run
+once on B, and only the attended tensors carry 2B (``attn.py:153-211,
+298-311``). The JAX package's opt-in ``_mlp_dedup_update`` is not ported.
 
 The block's second step, the audio token attending the updated visual
 tokens, is not computed: ``CAVP.forward_fusion`` discards its result on
@@ -53,24 +58,33 @@ class Attention(nn.Module):
         self.v = Linear(dim, dim, bias=False)
         self.proj = Linear(dim, dim)
 
-    def forward(self, x_q, x_kv):
-        """x_q [B, N, C] visual tokens; x_kv [B, 1, C] the audio token.
-        Returns (out [B, N, C], attn [B, heads, N, 1])."""
+    def forward(self, x_q, x_kv, dup: int = 1):
+        """x_q [B, N, C] visual tokens; x_kv [dup*B, 1, C] the audio
+        tokens (``dup`` halves, each over the same B visual rows).
+        Returns (out [dup*B, N, C], attn [dup*B, heads, N, 1])."""
         if x_kv.shape[1] != 1:
-            raise NotImplementedError("only the single-audio-token eval "
+            raise NotImplementedError("only the single-audio-token "
                                       "attention is ported")
-        C = x_q.shape[-1]
-        scale = (C // self.num_heads) ** -0.5
+        B, N, C = x_q.shape
+        if x_kv.shape[0] != dup * B:
+            raise ValueError(f"{x_kv.shape[0]} audio tokens for {B} visual "
+                             f"rows at dup={dup}")
+        h = self.num_heads
+        scale = (C // h) ** -0.5
         wqk, m = rank1_factors(self.q.weight, self.proj.weight,
-                               self.k(x_kv)[:, 0], self.v(x_kv)[:, 0],
-                               self.num_heads)
-        gate = torch.sigmoid(torch.einsum("bnc,bch->bnh", x_q, wqk) * scale)
+                               self.k(x_kv)[:, 0], self.v(x_kv)[:, 0], h)
+        if dup > 1:
+            scores = torch.einsum("bnc,dbch->dbnh", x_q, wqk.reshape(dup, B, C, h))
+            scores = scores.reshape(dup * B, N, h)
+        else:
+            scores = torch.einsum("bnc,bch->bnh", x_q, wqk)
+        gate = torch.sigmoid(scores * scale)
         out = torch.einsum("bnh,bhc->bnc", gate, m) + self.proj.bias.to(x_q.dtype)
         return out, gate.transpose(1, 2)[..., None]
 
 
 class Block(nn.Module):
-    """``attn.py:109-171`` mode "CA", visual side at dup=1."""
+    """``attn.py:109-171`` mode "CA", visual side."""
 
     def __init__(self, dim: int, num_heads: int = 4, mlp_ratio: float = 4.0):
         super().__init__()
@@ -79,9 +93,11 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
-    def forward(self, f_v, f_a):
+    def forward(self, f_v, f_a, dup: int = 1):
         f_v = self.norm1(f_v)
-        out, attn_v = self.attn(f_v, self.norm1(f_a))
+        out, attn_v = self.attn(f_v, self.norm1(f_a), dup)
+        if dup > 1:  # the normed residual base, once per half
+            f_v = f_v.repeat(dup, 1, 1)
         f_v = f_v + out
         f_v = f_v + self.mlp(self.norm2(f_v))
         return f_v, attn_v
@@ -118,12 +134,12 @@ class CrossAttention(nn.Module):
             [Block(embed_dim, num_heads, mlp_ratio) for _ in range(depth)])
         self.norm = LayerNorm(embed_dim)
 
-    def forward(self, f_v, f_a):
-        """f_v [B, N, C] visual tokens, f_a [B, 1, C] audio token ->
-        (fused tokens [B, N, C], attn_v [B, heads, N, 1])."""
+    def forward(self, f_v, f_a, dup: int = 1):
+        """f_v [B, N, C] visual tokens, f_a [dup*B, 1, C] audio tokens ->
+        (fused tokens [dup*B, N, C], attn_v [dup*B, heads, N, 1])."""
         f_v = self.patch_embed_v(f_v)
         f_a = self.patch_embed_a(f_a)
         attn_v = None
         for block in self.blocks:
-            f_v, attn_v = block(f_v, f_a)
+            f_v, attn_v = block(f_v, f_a, dup)
         return self.norm(f_v), attn_v

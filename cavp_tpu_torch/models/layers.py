@@ -7,14 +7,11 @@ so the reference state dict loads unchanged, and override ``forward``
 with that policy:
 
 - ``Conv2d`` / ``Linear``: the f32 weight is cast to the input's dtype;
-- ``BatchNorm2d`` (eval): the per-channel affine is computed in float32
-  from the running statistics and applied in the activation dtype
-  (``layers.py:204-248``);
+- ``BatchNorm2d``: the per-channel affine is computed in float32, from
+  the running statistics (eval) or from the batch (train), and applied
+  in the activation dtype (``layers.py:204-248``);
 - ``LayerNorm``: the normalization math runs in float32 and the result
   is cast back to the input's dtype (``layers.py:251+``).
-
-The port is eval-only so far: train-mode BatchNorm arrives with the
-train step.
 """
 
 from __future__ import annotations
@@ -40,14 +37,29 @@ class Linear(nn.Linear):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
+    """Train mode takes the batch statistics as float32 sums: the biased
+    variance ``max(s2/n - mean^2, 0)`` normalizes, the unbiased one goes
+    into the running variance, both running statistics move by
+    ``momentum`` (torch's convention, 0.1). ``num_batches_tracked`` is
+    left alone: the JAX package keeps no such count."""
+
     def forward(self, x):
         if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet; call .eval()")
-        inv = torch.rsqrt(self.running_var.float() + self.eps)
+            n = float(x.numel() // x.shape[1])
+            xf = x.float()
+            mean = xf.sum((0, 2, 3)) / n
+            var = ((xf * xf).sum((0, 2, 3)) / n - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * (n / max(n - 1.0, 1.0))
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        inv = torch.rsqrt(var + self.eps)
         gamma = self.weight.float()
         scale = inv * gamma
-        shift = (-self.running_mean.float() * inv) * gamma + self.bias.float()
+        shift = (-mean * inv) * gamma + self.bias.float()
         shape = (1, -1, 1, 1)
         return (x * scale.to(x.dtype).view(shape)
                 + shift.to(x.dtype).view(shape))

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-At first CUDA use, ``nvcc`` compiles the ``.cu`` sources under
-``cavp_tpu_torch/csrc/`` (and nothing else) for ``sm_90a`` into one
-shared library with a plain C interface, which is loaded with ``ctypes``.
+At first CUDA use, ``nvcc`` compiles every ``.cu`` source under
+``cavp_tpu_torch/csrc/`` (and nothing else) for ``sm_90a``, one compiler
+process per source and all started together, and links the objects into
+one shared library with a plain C interface, loaded with ``ctypes``.
 The library lands in ``build/cavp_tpu_torch/`` at the repository root,
 named by a hash of the sources and flags, so an edited source rebuilds
 and an unchanged one loads the existing file. Nothing here runs at
@@ -24,7 +25,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "cavp_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -64,16 +65,29 @@ def build_library() -> Tuple[Path, str]:
         return so, ""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    tag = f"{so.stem}.{os.getpid()}"
     cu, _ = _sources()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
-    return so, proc.stdout + proc.stderr
+    objects = [BUILD_DIR / f"{tag}.{f.stem}.o" for f in cu]
+    tmp = so.with_name(f"{tag}.tmp")
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for f, o in zip(cu, objects)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(f"[{f.name}]\n{out}" for f, out in zip(cu, logs))
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for f in (*objects, tmp):
+            f.unlink(missing_ok=True)
+    return so, log
 
 
 @functools.lru_cache(maxsize=None)

@@ -19,12 +19,26 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
    that the kernel ran, and that they agree with the same Predictor on
    the plain fusion path;
 5. runs ``make_eval_step`` at batch 120 with the kernel and with the
-   plain fusion path and prints frames/s for both.
+   plain fusion path and prints frames/s for both;
+6. holds the train fusion kernels (forward and backward) against their
+   plain PyTorch versions: float32 with TF32 off and bf16 at
+   [32, 3136, 304], float32 at a ragged token count (3199) and at C = 112;
+   every one of dx, dwqk, dm and the 17 weight gradients is compared, two
+   backward launches must give bit-equal gradients, and the kernels are
+   timed beside the plain forward and autograd through the module path;
+7. takes train steps through ``make_train_step`` (avss, batch 32, 224x224,
+   bf16, ``use_pallas_fusion_train``): one at epoch 0 and three at epoch 1,
+   checks the loss, the CoroCL term, that every optimizer group and the
+   sound bank moved and that each step launched each train kernel once,
+   then takes the same steps from the same state on the module path and
+   prints step time, frames/s and peak memory of both.
 
 The weights are random, drawn from a seed, and made non-degenerate (see
 ``random_weights``) so the comparisons are not empty. The numbers printed
-are measurements of the port on this card, not a benchmark. Every phase fails loudly; the last
-line is ``{"ok": true, "device": {...}}`` only when all of them passed.
+are measurements of the port on this card, not a benchmark. With
+``--profile`` it also prints a ``torch.profiler`` table of one train step.
+Every phase fails loudly; the last line is ``{"ok": true, "device":
+{...}}`` only when all of them passed.
 Without a CUDA device, or without the package beside it, it exits 1.
 """
 
@@ -39,6 +53,20 @@ from pathlib import Path
 
 SEED = 0
 BENCH_SHAPE = (120, 3136, 304)  # eval batch x 56*56 tokens x DeepLab feature
+TRAIN_SHAPE = (32, 3136, 304)   # train batch x 56*56 tokens x DeepLab feature
+TRAIN_BATCH = 32
+# H100 SXM data sheet: dense bf16 tensor rate, float32 rate, HBM3 bandwidth
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
+# gradients, float32 kernels against plain: the tests' 1e-4 x max|grad|.
+# bf16: both round at the same points, so they differ where another float
+# summation order flips a bf16 rounding of an intermediate; that error is
+# then carried through the later products
+GRAD_F32_REL = 1e-4
+GRAD_BF16_REL = 3e-2
+# first train step, kernel arm against module arm, bf16: the two round the
+# fusion stage at different points
+LOSS_REL = 2e-2
 F32_TOL = dict(rtol=1e-4, atol=5e-5)  # tests/test_pallas_fusion.py's
 # bf16: both versions round at the same points, so they differ only where
 # a different f32 summation order flips a bf16 rounding; outputs of the
@@ -133,6 +161,20 @@ def cuda_ms(fn, iters: int) -> float:
     return statistics.median(times)
 
 
+def bound_ms(flops: float, nbytes: float) -> tuple:
+    """The least time the card could take: (ms, what bounds it)."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def chain_flops_per_token(C: int, hidden: int, mlp_hidden: int, heads: int):
+    """(shared prefix with fc2 and patch_embed_v apart, one gated half):
+    two operations per multiply-add of every product of the token chain."""
+    prefix = 2 * (C * hidden + hidden * C + C * C)
+    half = 2 * (2 * C * heads + 2 * C * mlp_hidden)
+    return prefix, half
+
+
 def kernel_phase(model, device) -> dict:
     """Phase 3: the fusion kernel against its plain version."""
     import torch
@@ -194,7 +236,11 @@ def kernel_phase(model, device) -> dict:
         times[arm].append(cuda_ms(arms[arm], iters))
     results["ms"] = statistics.median(times["kernel"])
     results["plain_ms"] = statistics.median(times["plain"])
+    results["module_ms"] = statistics.median(times["module"])
     tokens = BENCH_SHAPE[0] * BENCH_SHAPE[1]
+    # the eval chain folds fc2 with patch_embed_v: one C x C product fewer
+    flops = tokens * 2 * (C * 256 + 256 * C + 2 * C * 4 + 2 * C * 4 * C)
+    results["bound_ms"], results["bound_by"] = bound_ms(flops, 2 * tokens * C * 2)
     fmt = lambda k: " / ".join(f"{t:.3f}" for t in times[k])
     print(f"[kernel] time at {list(BENCH_SHAPE)} bf16, median of {iters} "
           f"(plain, kernel, module, module, kernel, plain): kernel {fmt('kernel')} ms, "
@@ -282,6 +328,232 @@ def eval_phase(config, model, device, batch: int = 120, iters: int = 5) -> None:
           "(measurements of the port on this card)")
 
 
+def train_kernel_phase(model, small_model, device) -> dict:
+    """Phase 6: the train fusion kernels against their plain versions."""
+    import torch
+
+    from cavp_tpu_torch.models.cavp import tokens_to_map
+    from cavp_tpu_torch.ops.kernels import fusion_train as ft
+
+    g = torch.Generator().manual_seed(SEED + 4)
+    names = ("dx", "dwqk", "dm") + ft.WEIGHT_NAMES
+
+    def operands(mdl, b, n, dtype):
+        C = mdl.latent_dim
+        x = torch.randn(b, n, C, generator=g).to(device, dtype)
+        fea_a = torch.randn(2 * b, C, generator=g).to(device, dtype)
+        dy = torch.randn(2 * b, n, C, generator=g).to(device, dtype)
+        with torch.no_grad():
+            wqk2, m2, ws = ft.train_operands(mdl, fea_a, b, dtype)
+        return x, fea_a, dy, wqk2, m2, ws
+
+    def flat(result):
+        dx, dwqk, dm, dws = result
+        return [dx, dwqk, dm, *dws]
+
+    @torch.no_grad()
+    def compare(name, mdl, b, n, dtype):
+        x, _, dy, wqk2, m2, ws = operands(mdl, b, n, dtype)
+        y = ft.token_chain_train(x, wqk2, m2, ws)
+        got = flat(ft.token_chain_train_backward(x, wqk2, m2, ws, dy))
+        again = flat(ft.token_chain_train_backward(x, wqk2, m2, ws, dy))
+        torch.cuda.synchronize()
+        ref = ft.token_chain_train_reference(x, wqk2, m2, ws)
+        ref_g = flat(ft.token_chain_train_backward_reference(x, wqk2, m2, ws, dy))
+        torch.cuda.synchronize()
+        shape = [b, n, mdl.latent_dim]
+        require(y.shape == ref.shape and y.dtype == ref.dtype == dtype,
+                f"{name}: forward output {y.shape} {y.dtype}")
+        require(bool(torch.isfinite(y).all()), f"{name}: non-finite forward output")
+        err = (y.float() - ref.float()).abs()
+        fwd_max, fwd_mean = float(err.max()), float(err.mean())
+        if dtype == torch.float32:
+            torch.testing.assert_close(y, ref, **F32_TOL)
+            print(f"[train-kernel] {name} {shape} forward: max_abs_err {fwd_max:.3e} "
+                  f"mean_abs_err {fwd_mean:.3e} (rtol 1e-4, atol 5e-5: ok)")
+        else:
+            ok = fwd_max <= BF16_MAX_ABS and fwd_mean <= BF16_MEAN_ABS
+            print(f"[train-kernel] {name} {shape} forward: max_abs_err {fwd_max:.3e} "
+                  f"mean_abs_err {fwd_mean:.3e} (max {BF16_MAX_ABS}, mean "
+                  f"{BF16_MEAN_ABS}: {'ok' if ok else 'FAIL'})")
+            require(ok, f"{name}: the bf16 forward kernel disagrees with the plain version")
+        limit = GRAD_F32_REL if dtype == torch.float32 else GRAD_BF16_REL
+        worst_rel, worst_abs, report = 0.0, 0.0, []
+        for k, a, a2, r in zip(names, got, again, ref_g):
+            require(a.shape == r.shape and a.dtype == r.dtype,
+                    f"{name}: gradient {k} is {a.shape} {a.dtype}, plain {r.shape} {r.dtype}")
+            require(bool(torch.isfinite(a).all()), f"{name}: non-finite gradient {k}")
+            require(bool(torch.equal(a, a2)),
+                    f"{name}: two backward launches differ in gradient {k}")
+            abs_err = float((a.float() - r.float()).abs().max())
+            rel = abs_err / (float(r.float().abs().max()) + 1e-30)
+            report.append(f"{k} {rel:.1e}")
+            require(rel <= limit, f"{name}: gradient {k} is off by {rel:.3e} of its "
+                                  f"largest entry (limit {limit})")
+            worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
+        print(f"[train-kernel] {name} {shape} backward, max error over max|grad| of "
+              f"each of the {len(names)} gradients (limit {limit}; two launches "
+              f"bit-equal): {', '.join(report)}")
+        return fwd_max, worst_abs, worst_rel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, N, C = TRAIN_SHAPE
+    results = {}
+    compare("f32", model, B, N, torch.float32)
+    compare("f32_ragged", model, 3, N + 7 * 9, torch.float32)
+    compare("f32_c112", small_model, 3, 7 * 9, torch.float32)
+    compare("bf16_ragged", model, 3, N + 7 * 9, torch.bfloat16)
+    compare("bf16_c112", small_model, 3, 7 * 9 + 16, torch.bfloat16)
+    results["fwd_err"], results["bwd_err"], _ = compare("bf16", model, B, N, torch.bfloat16)
+
+    # times at the train step's shape, bf16
+    x, fea_a, dy, wqk2, m2, ws = operands(model, B, N, torch.bfloat16)
+    side = int(N ** 0.5)
+    dy_map = tokens_to_map(dy, side, side)
+
+    def module_fwd_bwd():  # what the train step runs with the kernels off
+        xm = x.detach().requires_grad_()
+        fused, _ = model.forward_fusion(tokens_to_map(xm, side, side), fea_a, dup=2)
+        fused.backward(dy_map)
+        model.zero_grad(set_to_none=True)
+
+    def wrapper_fwd_bwd():  # the same through the kernels, audio side included
+        xm = x.detach().requires_grad_()
+        ft.fusion_train(model, xm, fea_a).backward(dy)
+        model.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def module_fwd():
+        return model.forward_fusion(tokens_to_map(x, side, side), fea_a, dup=2)
+
+    arms = {
+        "fwd": lambda: ft.token_chain_train(x, wqk2, m2, ws),
+        "bwd": lambda: ft.token_chain_train_backward(x, wqk2, m2, ws, dy),
+        "plain_fwd": lambda: ft.token_chain_train_reference(x, wqk2, m2, ws),
+        "plain_bwd": lambda: ft.token_chain_train_backward_reference(x, wqk2, m2, ws, dy),
+        "module_fwd": module_fwd, "module_fwd_bwd": module_fwd_bwd,
+        "wrapper_fwd_bwd": wrapper_fwd_bwd,
+    }
+    launches = (ft.token_chain_train.launches, ft.token_chain_train_backward.launches)
+    iters, times = 5, {k: [] for k in arms}
+    order = list(arms) + list(reversed(arms))
+    for arm in order:
+        times[arm].append(cuda_ms(arms[arm], iters))
+    ft.token_chain_train.launches, ft.token_chain_train_backward.launches = launches
+    for k in arms:
+        results[f"{k}_ms"] = statistics.median(times[k])
+    print(f"[train-kernel] time at {list(TRAIN_SHAPE)} bf16, median of {iters}, each arm "
+          f"twice (forward order, then reversed): "
+          + "; ".join(f"{k} {' / '.join(f'{t:.3f}' for t in times[k])} ms" for k in arms))
+
+    tokens = B * N
+    hidden, mlp_hidden = ws[0].shape[1], ws[11].shape[1]
+    prefix, half = chain_flops_per_token(C, hidden, mlp_hidden, 4)
+    fwd_flops = tokens * (prefix + 2 * half)
+    weight_bytes = sum(w.numel() for w in ws) * 2
+    io = tokens * C * 2  # one [B, N, C] bf16 tensor
+    results["fwd_bound"] = bound_ms(fwd_flops, 3 * io + weight_bytes)
+    # recompute, the products for dx, the products for the weight gradients;
+    # reads x and both dy halves, writes dx and the float weight gradients
+    results["bwd_bound"] = bound_ms(3 * fwd_flops, 4 * io + weight_bytes * 3)
+    print(f"[train-kernel] bounds at 989 TFLOP/s bf16 and 3.35 TB/s: forward "
+          f"{results['fwd_bound'][0]:.3f} ms, backward {results['bwd_bound'][0]:.3f} ms "
+          f"(both by {results['fwd_bound'][1]})")
+    return results
+
+
+def train_phase(config, device, profile: bool) -> dict:
+    """Phase 7: train steps through the kernels, then on the module path."""
+    import numpy as np
+    import torch
+
+    from cavp_tpu_torch.data.synthetic import synthetic_train_batch
+    from cavp_tpu_torch.engine.loops import make_train_step
+    from cavp_tpu_torch.engine.optim import GROUPS, label_params
+    from cavp_tpu_torch.engine.runner import init_state
+    from cavp_tpu_torch.ops.kernels import fusion_train as ft
+
+    cfg = config.replace(batch_size=TRAIN_BATCH, use_pallas_fusion=False,
+                         use_pallas_fusion_train=True)
+    state = init_state(cfg, device)
+    labels = label_params(state.model)
+    epochs = (0, 1, 1, 1)
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in synthetic_train_batch(cfg, seed=SEED + 10 + i).items()}
+               for i in range(len(epochs))]
+    start = state.state_dict()
+    before = {k: v.clone() for k, v in state.model.named_parameters()}
+    bank_before = state.sound_bank.clone()
+
+    def run(arm_cfg, name):
+        step = make_train_step(state.model, state.optimizers, arm_cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ctr, times = [], [], []
+        for batch, epoch in zip(batches, epochs):
+            t0 = time.perf_counter()
+            _, metrics = step(state, batch, epoch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss/loss"]))
+            ctr.append(float(metrics["loss/l_ctr_av"]))
+            require(np.isfinite(losses[-1]), f"{name}: loss {losses[-1]} at step {len(losses)}")
+            require(ctr[-1] > 0, f"{name}: loss/l_ctr_av {ctr[-1]} at step {len(losses)}")
+            require(float(metrics["corocl/eligible_classes"]) >= 1,
+                    f"{name}: no eligible CoroCL class")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steady = statistics.median(times[1:])
+        print(f"[train] {name}: loss {' '.join(f'{v:.4f}' for v in losses)}; l_ctr_av "
+              f"{' '.join(f'{v:.4f}' for v in ctr)}; step ms "
+              f"{' '.join(f'{t:.1f}' for t in times)} (first step warms up; median of the "
+              f"rest {steady:.1f} ms, {TRAIN_BATCH / steady * 1e3:.1f} frames/s); peak "
+              f"memory {peak:.2f} GiB")
+        return losses, steady, peak
+
+    # the main path: the counts are read from these steps only
+    ft.token_chain_train.launches = ft.token_chain_train_backward.launches = 0
+    k_losses, k_ms, k_peak = run(cfg, "kernel arm")
+    launches = (ft.token_chain_train.launches, ft.token_chain_train_backward.launches)
+    require(launches == (len(epochs), len(epochs)),
+            f"train kernels launched {launches} times in {len(epochs)} steps")
+    require(state.step == len(epochs), f"step count {state.step}")
+    moved = {g: False for g in GROUPS}
+    for name, p in state.model.named_parameters():
+        if not torch.equal(p, before[name]):
+            moved[labels[name]] = True
+    require(all(moved.values()), f"optimizer groups that did not move: "
+            f"{[g for g, m in moved.items() if not m]}")
+    require(not torch.equal(state.sound_bank, bank_before), "the sound bank did not change")
+    require(all(bool(torch.isfinite(p).all()) for p in state.model.parameters()),
+            "non-finite parameter after the steps")
+    print(f"[train] kernel arm: {len(epochs)} steps (epochs {list(epochs)}), forward and "
+          f"backward kernel launches {launches}, all {len(GROUPS)} optimizer groups and "
+          f"the sound bank moved")
+
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+        step = make_train_step(state.model, state.optimizers, cfg)
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state, batches[-1], 1)
+            torch.cuda.synchronize()
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40,
+                                          max_name_column_width=70)
+        print(table)
+
+    # the same steps from the same state on the module path
+    state.load_state_dict(start)
+    m_losses, m_ms, m_peak = run(cfg.replace(use_pallas_fusion_train=False), "module arm")
+    rel = abs(k_losses[0] - m_losses[0]) / abs(m_losses[0])
+    print(f"[train] first step's loss: kernel arm {k_losses[0]:.5f}, module arm "
+          f"{m_losses[0]:.5f}, relative difference {rel:.2e} (limit {LOSS_REL})")
+    require(rel <= LOSS_REL, "the kernel arm's first loss is off the module arm's")
+    del state, start, before
+    torch.cuda.empty_cache()
+    return {"launches": launches, "kernel_ms": k_ms, "module_ms": m_ms,
+            "kernel_gib": k_peak, "module_gib": m_peak}
+
+
 def main() -> int:
     try:
         import torch
@@ -333,13 +605,36 @@ def main() -> int:
     launches = serving_phase(config, state_dict, device)
     # 5. eval step
     eval_phase(config, model, device)
+    # 6. train kernels against plain
+    small = build_model(config.replace(visual_backbone=18), device)
+    random_weights(small, config, device)
+    tres = train_kernel_phase(model, small, device)
+    del small, model
+    torch.cuda.empty_cache()
+    # 7. train steps: the launch counts are read from this run only
+    train = train_phase(config, device, profile="--profile" in sys.argv[1:])
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_visual_fusion", "route": "cuda",
-        "source": "cavp_tpu_torch/csrc/fusion_kernel.cu",
-        "replaces": "cavp_tpu/ops/pallas/fusion_kernel.py:119",
-        "launches": launches, "max_abs_err": kres["bf16"],
-        "ms": kres["ms"], "plain_ms": kres["plain_ms"]}]}))
+    train_source = "cavp_tpu_torch/csrc/fusion_train_kernel.cu"
+    print(json.dumps({"kernels": [
+        {"name": "fused_visual_fusion", "route": "cuda",
+         "source": "cavp_tpu_torch/csrc/fusion_kernel.cu",
+         "replaces": "cavp_tpu/ops/pallas/fusion_kernel.py:119",
+         "launches": launches, "max_abs_err": kres["bf16"],
+         "ms": kres["ms"], "plain_ms": kres["plain_ms"],
+         "bound_ms": kres["bound_ms"], "bound_by": kres["bound_by"],
+         "library_ms": None},
+        {"name": "fusion_train_fwd", "route": "cuda", "source": train_source,
+         "replaces": "cavp_tpu/ops/pallas/fusion_train_kernel.py:280",
+         "launches": train["launches"][0], "max_abs_err": tres["fwd_err"],
+         "ms": tres["fwd_ms"], "plain_ms": tres["plain_fwd_ms"],
+         "bound_ms": tres["fwd_bound"][0], "bound_by": tres["fwd_bound"][1],
+         "library_ms": None},
+        {"name": "fusion_train_bwd", "route": "cuda", "source": train_source,
+         "replaces": "cavp_tpu/ops/pallas/fusion_train_kernel.py:312",
+         "launches": train["launches"][1], "max_abs_err": tres["bwd_err"],
+         "ms": tres["bwd_ms"], "plain_ms": tres["plain_bwd_ms"],
+         "bound_ms": tres["bwd_bound"][0], "bound_by": tres["bwd_bound"][1],
+         "library_ms": None}]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -60,8 +60,11 @@ def test_batchnorm_eval():
     np.testing.assert_allclose(nhwc(bn(x)), np.asarray(ref), **TOL)
     # bf16 activations stay bf16 (the affine itself is computed in f32)
     assert bn(x.bfloat16()).dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        bn.train()(x)
+    # train mode normalizes with the batch's own statistics (held against
+    # the JAX module in tests/test_torch_port_train_parts.py)
+    y = bn.train()(x)
+    np.testing.assert_allclose(y.mean((0, 2, 3)).detach().numpy(), bn.bias.detach().numpy(),
+                               rtol=0, atol=1e-5)
 
 
 def test_layernorm():
@@ -175,7 +178,7 @@ def test_bridge_matches_jax_export_and_loads_strictly(r50):
     assert set(sd) == set(own)
     for k, v in own.items():
         assert torch.equal(sd[k], v.cpu()), k
-    fresh = build_model(cfg, generator=torch.Generator().manual_seed(99))
+    fresh = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(99))
     fresh.load_state_dict(sd, strict=True)
     for k, v in fresh.state_dict().items():
         assert torch.equal(v, sd[k]), k

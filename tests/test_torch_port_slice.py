@@ -139,7 +139,7 @@ def test_eval_step_matches_jax(small):
         jvars, jax_loops.eval_metrics_init(jcfg.num_classes),
         {k: jnp.asarray(v) for k, v in jbatch.items()})
     got = loops.make_eval_step(model, cfg)(
-        loops.eval_metrics_init(cfg.num_classes),
+        loops.eval_metrics_init(cfg.num_classes, "cpu"),
         {k: torch.from_numpy(v) for k, v in batch.items()})
     for name in ("miou_all", "miou_ms"):
         for f in ("inter", "union", "correct", "labeled"):
@@ -163,7 +163,7 @@ def test_predictor_matches_jax(small, tmp_path):
     path = str(tmp_path / "port.pth")
     torch.save({"model": sd}, path)
     jp = JaxPredictor(jcfg, ckpt_path=path, batch_sizes=(2,))
-    p = Predictor(cfg, batch_sizes=(2,), state_dict=sd)
+    p = Predictor(cfg, "cpu", batch_sizes=(2,), state_dict=sd)
     assert p.warmup() is p.warmup()
 
     rng = np.random.RandomState(5)
@@ -190,9 +190,47 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'cavp_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 36, names\n"
+        "new = ['device', 'engine.optim', 'engine.schedules', 'engine.state', "
+        "'losses.ce', 'losses.corocl', 'models.soundbank', 'ops.interp', "
+        "'ops.kernels.fusion_train']\n"
+        "missing = [n for n in new if 'cavp_tpu_torch.' + n not in names]\n"
+        "assert not missing, missing\n"
         "print(len(names))\n")
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_default_to_the_cuda_device_and_never_to_the_cpu():
+    """Without ``device`` every entry point that allocates asks for the
+    card, and on a machine without one says so; ``device="cpu"`` works."""
+    from cavp_tpu_torch.config import get_config
+    from cavp_tpu_torch.device import resolve_device
+    from cavp_tpu_torch.engine.optim import make_optimizer
+    from cavp_tpu_torch.engine.runner import build_model, init_state
+    from cavp_tpu_torch.engine.state import create_train_state
+    from cavp_tpu_torch.models.soundbank import init_bank
+
+    assert not torch.cuda.is_available()  # the CPU test machine
+    cfg = get_config("avss").replace(image_width=64, image_height=64, num_classes=5,
+                                     visual_backbone=18, compute_dtype="float32", batch_size=2)
+    model = build_model(cfg, "cpu", train=True)
+    assert model.training and next(model.parameters()).device.type == "cpu"
+    optimizers, _ = make_optimizer(model, cfg)
+    calls = {
+        "build_model": lambda: build_model(cfg),
+        "Predictor": lambda: Predictor(cfg),
+        "eval_metrics_init": lambda: loops.eval_metrics_init(5),
+        "init_bank": lambda: init_bank(5, 2, 8),
+        "create_train_state": lambda: create_train_state(model, optimizers, cfg),
+        "init_state": lambda: init_state(cfg),
+        "by name": lambda: resolve_device("cuda:0"),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    state = create_train_state(model, optimizers, cfg, "cpu")
+    assert state.step == 0 and state.sound_bank.shape == (5, 2, cfg.audio_samples)
+    assert state.sound_bank.device.type == "cpu"

@@ -48,7 +48,7 @@ def jax_variables(jax_model, state_dict, hw):
 def model_pair(seed=0, **overrides):
     """(port model, port config, JAX model, JAX config, JAX variables)."""
     cfg, jcfg = configs(**overrides)
-    model = build_model(cfg, generator=torch.Generator().manual_seed(seed))
+    model = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(seed))
     randomize_bn_stats(model, seed)
     jmodel = jax_build_model(jcfg)
     jvars = jax_variables(jmodel, model.state_dict(),
