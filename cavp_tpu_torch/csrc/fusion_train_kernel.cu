@@ -26,32 +26,34 @@
 // ~10 MFLOP against 0.6 to 2.4 KB of token IO, so both are bound by
 // operations, and only the tensor cores give the rate they need.
 //
-// Design. A block holds one tile of tokens and its intermediates in shared
-// memory and streams the weights from global memory (L2), as the eval
-// kernel does. The three kinds of product the TPU kernel has (x @ W,
-// dy @ W^T, x^T @ dy) are three block-wide routines with a per-element
-// epilogue, `Mm::nn`, `Mm::nt` and `Mm::outer`:
-// - bf16: 16x16x16 WMMA tiles with float accumulators, one output column
-//   tile per warp at a time, the epilogue through a per-warp float scratch;
-//   W^T and x^T are read as column-major fragments, so no transpose is
-//   stored.
-// - float32: the tensor cores have no full-float mode, so these run on the
-//   CUDA cores (one output column per thread, float4 rows). This path
-//   serves float32 configurations and the parity checks.
-// The 4C-wide MLP hidden is walked in chunks in both directions; the
-// backward walks it twice per half (once to rebuild t5, once to propagate),
-// which keeps its shared memory within 227 KB at a tile of 16 tokens
-// (float32) or 32 tokens in chunks of 64 hidden columns (bf16).
+// The forward, and the float32 backward. A block holds one tile of tokens
+// and its intermediates in shared memory and streams the weights from
+// global memory (L2), as the eval kernel does. The products (x @ W,
+// dy @ W^T, x^T @ dy) are block-wide routines with a per-element epilogue,
+// `Mm::nn`, `Mm::nt` and `Mm::outer`: bf16 (forward only) in 16x16x16 WMMA
+// tiles with float accumulators, the epilogue through a per-warp float
+// scratch; float32 on the CUDA cores (one output column per thread, float4
+// rows), since the tensor cores have no full-float mode. The 4C-wide MLP
+// hidden is walked in chunks. The float32 backward (tiles of 16 tokens)
+// serves float32 configurations and the parity checks: its grid is (blocks
+// per image, B), each block adds the weight gradients of its tiles into its
+// own float partial set in global memory, and the reduction sums the sets.
 //
-// The TPU kernel adds all weight gradients into buffers that stay resident
-// across a sequential grid. Here blocks run in parallel: the backward grid
-// is (blocks per image, B), at most one block per SM so that all run in one
-// wave, each block walks its own token tiles of one
-// image and adds into its own float partial set in global memory (weight
-// gradients, and that image's d(wqk), d(m)); `reduce_kernel` then sums the
-// sets in a fixed order. No atomics: the result does not depend on
-// scheduling. The ragged last tile is masked here (zero x and dy rows add
-// nothing to any sum), with no host-side padding.
+// The bf16 backward (the train step's path) is three launches, below
+// `stage_a_kernel`. What bounded the single-kernel design it replaces was
+// the weight gradients: contracted over 32 tokens at a time and added into
+// global memory after each tile (13.8 MB of read-modify-write per tile,
+// 43 GB per step at [32, 3136, 304]), at 8 FLOP per byte. Here stage A
+// (tiles of 32 tokens, weight tiles staged in shared memory by cp.async and
+// fed to mma.sync by ldmatrix, epilogues on the register fragments) writes
+// the bf16 operands of those products once; stage B contracts them over
+// token ranges of 12,544 in registers (128 x 128 output tiles, 4-stage
+// cp.async pipeline), and the reduction sums the few partials in a fixed
+// order. The bias and LayerNorm-affine gradients are column sums in stage
+// A's epilogues and column passes, in float, into the block's own partial
+// set. The ragged last tile is masked (zero x and dy rows add nothing to
+// any sum), with no host-side padding. No float atomics: the result does
+// not depend on scheduling.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -162,18 +164,6 @@ template <int TOK> struct Mm<float, TOK> {
     }
   }
 
-  // the CUDA-core routines have one thread per column: nothing to split
-  template <typename Epi>
-  static __device__ void nn_narrow(const float* A, int lda, int K, const float* W, int ldw,
-                                   int N, float* scratch, Epi epi) {
-    nn(A, lda, K, W, ldw, N, scratch, epi);
-  }
-  template <typename Epi>
-  static __device__ void nt_narrow(const float* D, int ldd, int N, const float* W, int ldw,
-                                   int K, float* scratch, Epi epi) {
-    nt(D, ldd, N, W, ldw, K, scratch, epi);
-  }
-
   static __device__ void outer(const float* A, int lda, int K, const float* D, int ldd,
                                int N, float* G, int ldg) {
     for (int i = threadIdx.x; i < K * N; i += kThreads) {
@@ -190,12 +180,8 @@ template <int TOK> struct Mm<bf16, TOK> {
   static constexpr int RT = TOK / 16;  // row tiles
   using FragA = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, bf16,
                                        nvcuda::wmma::row_major>;
-  using FragAT = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, bf16,
-                                        nvcuda::wmma::col_major>;
   using FragB = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
                                        nvcuda::wmma::row_major>;
-  using FragBT = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
-                                        nvcuda::wmma::col_major>;
   using FragC = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
 
   template <typename Epi>
@@ -230,113 +216,6 @@ template <int TOK> struct Mm<bf16, TOK> {
         }
       }
       finish(acc, scratch, ct * 16, epi);
-    }
-  }
-
-  template <typename Epi>
-  static __device__ void nt(const bf16* D, int ldd, int N, const bf16* W, int ldw, int K,
-                            float* scratch, Epi epi) {
-    for (int ct = threadIdx.x >> 5; ct < K / 16; ct += kWarps) {
-      FragC acc[RT];
-#pragma unroll
-      for (int r = 0; r < RT; ++r) nvcuda::wmma::fill_fragment(acc[r], 0.f);
-      FragA a;
-      FragBT b;  // b(n, j) = W[(ct*16 + j) * ldw + n0 + n]
-      for (int n = 0; n < N; n += 16) {
-        nvcuda::wmma::load_matrix_sync(b, W + (size_t)ct * 16 * ldw + n, ldw);
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          nvcuda::wmma::load_matrix_sync(a, D + r * 16 * ldd + n, ldd);
-          nvcuda::wmma::mma_sync(acc[r], a, b, acc[r]);
-        }
-      }
-      finish(acc, scratch, ct * 16, epi);
-    }
-  }
-
-  // one 16x16 result tile (row tile r, columns from j0) through the warp's scratch
-  template <typename Epi>
-  static __device__ __forceinline__ void finish_one(const FragC& acc, float* scratch, int r,
-                                                    int j0, Epi epi) {
-    const int lane = threadIdx.x & 31;
-    float* mine = scratch + (threadIdx.x >> 5) * 256;
-    nvcuda::wmma::store_matrix_sync(mine, acc, 16, nvcuda::wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) epi(r * 16 + e / 16, j0 + e % 16, mine[e]);
-    __syncwarp();
-  }
-
-  // nn and nt for a result with fewer column tiles than warps (a chunk of
-  // the MLP hidden in the backward): a warp takes one row tile of one
-  // column tile, so that none idles. The sums run in the same order.
-  template <typename Epi>
-  static __device__ void nn_narrow(const bf16* A, int lda, int K, const bf16* W, int ldw,
-                                   int N, float* scratch, Epi epi) {
-    for (int u = threadIdx.x >> 5; u < (N / 16) * RT; u += kWarps) {
-      const int ct = u / RT, r = u % RT;
-      FragC acc;
-      nvcuda::wmma::fill_fragment(acc, 0.f);
-      FragA a;
-      FragB b;
-      for (int k = 0; k < K; k += 16) {
-        nvcuda::wmma::load_matrix_sync(b, W + (size_t)k * ldw + ct * 16, ldw);
-        nvcuda::wmma::load_matrix_sync(a, A + r * 16 * lda + k, lda);
-        nvcuda::wmma::mma_sync(acc, a, b, acc);
-      }
-      finish_one(acc, scratch, r, ct * 16, epi);
-    }
-  }
-
-  template <typename Epi>
-  static __device__ void nt_narrow(const bf16* D, int ldd, int N, const bf16* W, int ldw,
-                                   int K, float* scratch, Epi epi) {
-    for (int u = threadIdx.x >> 5; u < (K / 16) * RT; u += kWarps) {
-      const int ct = u / RT, r = u % RT;
-      FragC acc;
-      nvcuda::wmma::fill_fragment(acc, 0.f);
-      FragA a;
-      FragBT b;
-      for (int n = 0; n < N; n += 16) {
-        nvcuda::wmma::load_matrix_sync(b, W + (size_t)ct * 16 * ldw + n, ldw);
-        nvcuda::wmma::load_matrix_sync(a, D + r * 16 * ldd + n, ldd);
-        nvcuda::wmma::mma_sync(acc, a, b, acc);
-      }
-      finish_one(acc, scratch, r, ct * 16, epi);
-    }
-  }
-
-  static __device__ void outer(const bf16* A, int lda, int K, const bf16* D, int ldd,
-                               int N, float* G, int ldg) {
-    // a warp takes U result tiles at a time: their accumulators come from
-    // global memory, and U loads in flight hide what one would wait for
-    constexpr int U = 4;
-    const int nts = N / 16, tiles = (K / 16) * nts, warp = threadIdx.x >> 5;
-    for (int first = warp; first < tiles; first += kWarps * U) {
-      FragC acc[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int tile = first + u * kWarps;
-        if (tile < tiles)
-          nvcuda::wmma::load_matrix_sync(
-              acc[u], G + (size_t)(tile / nts) * 16 * ldg + (tile % nts) * 16, ldg,
-              nvcuda::wmma::mem_row_major);
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int tile = first + u * kWarps;
-        if (tile >= tiles) continue;
-        const int kt = tile / nts, nt_ = tile % nts;
-        FragAT a;  // a(k, t) = A[t * lda + kt*16 + k]
-        FragB b;
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          nvcuda::wmma::load_matrix_sync(a, A + r * 16 * lda + kt * 16, lda);
-          nvcuda::wmma::load_matrix_sync(b, D + r * 16 * ldd + nt_ * 16, ldd);
-          nvcuda::wmma::mma_sync(acc[u], a, b, acc[u]);
-        }
-        nvcuda::wmma::store_matrix_sync(G + (size_t)kt * 16 * ldg + nt_ * 16, acc[u], ldg,
-                                        nvcuda::wmma::mem_row_major);
-      }
     }
   }
 };
@@ -532,7 +411,7 @@ __device__ void prefix_forward(const Tile<T>& s, const Weights& w, const Dims& d
 
 // a in U3 -> t4 in U0, b4 = LN2(t4) in U1 (statistics in MU/R[0..TOK)),
 // t5 in U2; the gate in G (float) and GT (rounded). Uses F1 and H1.
-template <typename T, int TOK, bool NARROW>
+template <typename T, int TOK>
 __device__ void half_forward(const Tile<T>& s, const Weights& w, const Dims& d, const T* wqk,
                              const T* m) {
   using M = Mm<T, TOK>;
@@ -570,10 +449,7 @@ __device__ void half_forward(const Tile<T>& s, const Weights& w, const Dims& d, 
     auto to_h1 = [=](int t, int j, float acc) {
       H1[t * ldh + j] = cvt<T>(gelu(acc + ldf(bm1[c0 + j])));
     };
-    if (NARROW)  // the backward's 64-column chunks
-      M::nn_narrow(U1, ldu, C, (const T*)w.wm1 + c0, d.mh, cw, s.scratch, to_h1);
-    else
-      M::nn(U1, ldu, C, (const T*)w.wm1 + c0, d.mh, cw, s.scratch, to_h1);
+    M::nn(U1, ldu, C, (const T*)w.wm1 + c0, d.mh, cw, s.scratch, to_h1);
     __syncthreads();
     M::nn(H1, ldh, cw, (const T*)w.wm2 + (size_t)c0 * C, C, C, s.scratch,
           [=](int t, int j, float acc) { F1[t * ldf_ + j] += acc; });
@@ -605,7 +481,7 @@ fwd_kernel(const T* __restrict__ x, const T* __restrict__ wqk2, const T* __restr
                   nullptr);
   __syncthreads();
   for (int dd = 0; dd < 2; ++dd) {
-    half_forward<T, TOK, false>(s, w, d, wqk2 + ((size_t)b * 2 + dd) * C * d.heads,
+    half_forward<T, TOK>(s, w, d, wqk2 + ((size_t)b * 2 + dd) * C * d.heads,
                          m2 + ((size_t)b * 2 + dd) * d.heads * C);
     ln_rows<T, TOK>(s.U2, s.ldu, (const T*)w.g3, (const T*)w.c3, C, s.U2, s.ldu, nullptr,
                     nullptr);
@@ -696,7 +572,7 @@ bwd_kernel(const T* __restrict__ x, const T* __restrict__ wqk2, const T* __restr
       };
 
       // ---- recompute this half: t4 in U0, b4 in U1, t5 in U2 ------------
-      half_forward<T, TOK, true>(s, w, d, wqk, m);
+      half_forward<T, TOK>(s, w, d, wqk, m);
       stats_rows<T, TOK>(U2, ldu, C, mu3, r3);
       __syncthreads();
 
@@ -718,14 +594,14 @@ bwd_kernel(const T* __restrict__ x, const T* __restrict__ wqk2, const T* __restr
       // ---- the MLP, backward, one hidden chunk at a time -------------------
       for (int c0 = 0; c0 < mh; c0 += d.chunk) {
         const int cw = min(d.chunk, mh - c0);
-        M::nn_narrow(U1, ldu, C, (const T*)w.wm1 + c0, mh, cw, s.scratch,
+        M::nn(U1, ldu, C, (const T*)w.wm1 + c0, mh, cw, s.scratch,
               [=](int t, int j, float acc) {
                 const float h0 = acc + ldf(bm1[c0 + j]);
                 H0[t * d.chunk + j] = h0;
                 H1[t * ldh + j] = cvt<T>(gelu(h0));
               });
         __syncthreads();
-        M::nt_narrow(U2, ldu, C, (const T*)w.wm2 + (size_t)c0 * C, C, cw, s.scratch,
+        M::nt(U2, ldu, C, (const T*)w.wm2 + (size_t)c0 * C, C, cw, s.scratch,
               [=](int t, int j, float acc) {
                 const float dh0 = acc * dgelu(H0[t * d.chunk + j]);
                 H0[t * d.chunk + j] = dh0;
@@ -839,16 +715,713 @@ bwd_kernel(const T* __restrict__ x, const T* __restrict__ wqk2, const T* __restr
   }
 }
 
-// out[g, i] = sum_p part[g, p, i], p in stored order
-__global__ void reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
-                              int nparts, long long n, long long total) {
+// ===========================================================================
+// The bf16 backward, in three launches:
+//   stage A  recompute and cotangents: per token tile, dx, the per-image
+//            d(wqk)/d(m) and the bias and LayerNorm-affine gradients into the
+//            block's own float partial set, and the bf16 operands of the
+//            weight-gradient products written to device memory;
+//   stage B  the seven weight-gradient products dW = X^T dY as five GEMMs
+//            (the two halves of wm1/wm2 contract over 2BN tokens), split over
+//            token ranges into float partials;
+//   reduce   every partial set summed in a fixed order.
+// No float atomics anywhere: two launches give bit-equal gradients.
+// ===========================================================================
+
+// ---- PTX: cp.async, ldmatrix, mma.sync m16n8k16 (bf16 in, float sum) -------
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// 16 bytes global -> shared; zero-filled when !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void put2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+// ---- stage A ---------------------------------------------------------------
+constexpr int TA = 32;          // tokens per tile
+constexpr int KB = 32;          // contraction depth of one staged weight tile
+constexpr int NP = kWarps * 16;  // output columns per pass, 16 per warp
+constexpr int STAGES = 3;       // weight tiles in flight
+constexpr int RING = NP * (KB + 8);  // bf16 per ring slot: >= KB * (NP + 8)
+
+// A warp's share of one pass: all TA rows by 16 columns, as mma.sync
+// accumulators v[row tile][n8 tile][c0..c3]; entry (r, q, e) is row
+// r*16 + lane/4 + 8*(e/2), column j0 + q*8 + 2*(lane%4) + e%2.
+struct Frag {
+  float v[TA / 16][2][4];
+};
+
+// One pass of out[t, n0 + j] = sum_k A[t, k] W(k, n0 + j), j < ncols <= NP.
+// A: the tile's rows in shared memory (bf16, row stride lda). W in global
+// memory, row-major: NT false reads W[k * ldw + n] (x @ W), NT true reads
+// W[n * ldw + k] (dy @ W^T). The weight tiles go through a ring of STAGES
+// slots by cp.async, KB rows of the contraction at a time, and reach the
+// tensor cores by ldmatrix (.trans for x @ W). Ends with a block barrier.
+template <bool NT>
+__device__ __forceinline__ void gemm_pass(Frag& f, const bf16* A, int lda, int K,
+                                          const bf16* __restrict__ W, int ldw, int n0,
+                                          int ncols, bf16* ring) {
+  const int tid = threadIdx.x, lane = tid & 31, wc = (tid >> 5) * 16;
+#pragma unroll
+  for (int r = 0; r < TA / 16; ++r)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f.v[r][q][e] = 0.f;
+  const int nk = (K + KB - 1) / KB;
+  auto load = [&](int kt) {
+    bf16* dst = ring + (kt % STAGES) * RING;
+    const int k0 = kt * KB, rows = min(KB, K - k0);
+    for (int c = tid; c < NP * KB / 8; c += kThreads) {
+      if (NT) {  // slot [NP][KB + 8]: output column j, contraction k
+        const int j = c / (KB / 8), kk = (c % (KB / 8)) * 8;
+        const bool ok = j < ncols && kk < rows;
+        cp_async16(dst + j * (KB + 8) + kk, ok ? W + (size_t)(n0 + j) * ldw + k0 + kk : W, ok);
+      } else {   // slot [KB][NP + 8]
+        const int kk = c / (NP / 8), j = (c % (NP / 8)) * 8;
+        const bool ok = kk < rows && j < ncols;
+        cp_async16(dst + kk * (NP + 8) + j, ok ? W + (size_t)(k0 + kk) * ldw + n0 + j : W, ok);
+      }
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  const int q = lane >> 3, rr = lane & 7;
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // slot kt has landed; slot kt-1 is free again
+    if (kt + STAGES - 1 < nk) load(kt + STAGES - 1);
+    cp_async_commit();
+    const bf16* tile = ring + (kt % STAGES) * RING;
+    const int k0 = kt * KB, steps = min(KB, K - k0) / 16;
+    if (wc < ncols) {
+      for (int ks = 0; ks < steps; ++ks) {
+        unsigned a[TA / 16][4], b[4];
+#pragma unroll
+        for (int r = 0; r < TA / 16; ++r)
+          ldsm_x4(a[r], A + (r * 16 + (lane & 15)) * lda + k0 + ks * 16 + (lane >> 4) * 8);
+        if (NT)
+          ldsm_x4(b, tile + (wc + (q >> 1) * 8 + rr) * (KB + 8) + ks * 16 + (q & 1) * 8);
+        else
+          ldsm_x4_t(b, tile + (ks * 16 + (q & 1) * 8 + rr) * (NP + 8) + wc + (q >> 1) * 8);
+#pragma unroll
+        for (int r = 0; r < TA / 16; ++r) {
+          mma16816(f.v[r][0], a[r], b[0], b[1]);
+          mma16816(f.v[r][1], a[r], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// fn(t, j, v0, v1) for each pair of neighbouring columns the warp holds
+template <typename Fn>
+__device__ __forceinline__ void each_pair(const Frag& f, int j0, Fn fn) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int r = 0; r < TA / 16; ++r)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        fn(r * 16 + g + 8 * h, j0 + q * 8 + 2 * tq, f.v[r][q][2 * h], f.v[r][q][2 * h + 1]);
+}
+
+// G[j] += sum over the tile's rows of fn(t, j, v), for the warp's 16
+// columns: the warp holds every row of them, so the sum is the warp's own
+// (shuffles in a fixed order) and no other warp writes G[j].
+template <typename Fn>
+__device__ __forceinline__ void col_sums(const Frag& f, int j0, float* G, Fn fn) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = j0 + q * 8 + 2 * tq + c;
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < TA / 16; ++r)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) s += fn(r * 16 + g + 8 * h, j, f.v[r][q][2 * h + c]);
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (g == 0) G[j] += s;
+    }
+}
+
+// out[t, j] = A @ W (or A @ W^T), every pass handed to epi(frag, j0)
+template <bool NT, typename Epi>
+__device__ void gemm(const bf16* A, int lda, int K, const bf16* __restrict__ W, int ldw, int N,
+                     bf16* ring, Epi epi) {
+  const int wc = (threadIdx.x >> 5) * 16;
+  for (int n0 = 0; n0 < N; n0 += NP) {
+    Frag f;
+    const int ncols = min(NP, N - n0);
+    gemm_pass<NT>(f, A, lda, K, W, ldw, n0, ncols, ring);
+    if (wc < ncols) epi(f, n0 + wc);
+  }
+  __syncthreads();
+}
+
+// A1 @ W1 and A2 @ W2^T over the same output columns, both handed to
+// epi(f1, f2, j0): an elementwise product of the two stays in registers
+template <typename Epi>
+__device__ void gemm_pair(const bf16* A1, const bf16* __restrict__ W1, int ldw1, const bf16* A2,
+                          const bf16* __restrict__ W2, int ldw2, int lda, int K, int N, bf16* ring,
+                          Epi epi) {
+  const int wc = (threadIdx.x >> 5) * 16;
+  for (int n0 = 0; n0 < N; n0 += NP) {
+    Frag f1, f2;
+    const int ncols = min(NP, N - n0);
+    gemm_pass<false>(f1, A1, lda, K, W1, ldw1, n0, ncols, ring);
+    gemm_pass<true>(f2, A2, lda, K, W2, ldw2, n0, ncols, ring);
+    if (wc < ncols) epi(f1, f2, n0 + wc);
+  }
+  __syncthreads();
+}
+
+// per-row LayerNorm-backward moments: m1[t] = mean_c up*g, m2[t] = mean_c up*g*xhat
+template <typename Up, typename Xhat>
+__device__ void ln_moments(Up up, Xhat xhat, const bf16* g, int C, float* m1, float* m2) {
+  const int lane = threadIdx.x & 31;
+  for (int t = threadIdx.x >> 5; t < TA; t += kWarps) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float u = up(t, c) * ldf(g[c]);
+      s1 += u;
+      s2 += u * xhat(t, c);
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      m1[t] = s1 / C;
+      m2[t] = s2 / C;
+    }
+  }
+}
+
+__device__ __forceinline__ float ln_bwd_at(float up, float g, float xhat, float r, float m1,
+                                           float m2) {
+  return r * (up * g - m1 - xhat * m2);
+}
+
+// the bf16 operands of stage B, row-major [tokens, width]; b4, h1, dt5
+// and dh0 hold both halves, [2, B*N, width]
+struct Operands {
+  bf16 *t1, *t2, *dt3, *dt2, *dt0, *b4, *h1, *dt5, *dh0;
+};
+
+// offsets (in floats) of the 12 vector gradients inside stage A's per-block
+// partial set
+struct VecOffsets {
+  int b1, b2, bpe, g1, c1, bp, g2, c2, bm1, bm2, g3, c3, total;
+};
+
+__host__ __device__ inline VecOffsets vec_offsets(int C, int hid, int mh) {
+  VecOffsets o;
+  o.b1 = 0;
+  o.b2 = o.b1 + hid;
+  o.bpe = o.b2 + C;
+  o.g1 = o.bpe + C;
+  o.c1 = o.g1 + C;
+  o.bp = o.c1 + C;
+  o.g2 = o.bp + C;
+  o.c2 = o.g2 + C;
+  o.bm1 = o.c2 + C;
+  o.bm2 = o.bm1 + mh;
+  o.g3 = o.bm2 + C;
+  o.c3 = o.g3 + C;
+  o.total = o.c3 + C;
+  return o;
+}
+
+struct LayoutA {
+  size_t u[5], hb, ring, stats, mom, gate, total;
+  int ldu, ldh;
+};
+
+__host__ __device__ inline LayoutA layout_a(int C, int hid, int mh, int heads) {
+  LayoutA l;
+  l.ldu = (C > hid ? C : hid) + 8;  // +8: rows off the bank stride for ldmatrix
+  l.ldh = mh + 8;
+  size_t off = 0;
+  for (int i = 0; i < 5; ++i) l.u[i] = take(off, (size_t)TA * l.ldu * 2, 128);
+  l.hb = take(off, (size_t)TA * l.ldh * 2, 128);  // also [TA][C] float
+  l.ring = take(off, (size_t)STAGES * RING * 2, 128);
+  l.stats = take(off, (size_t)6 * TA * 4, 128);
+  l.mom = take(off, (size_t)4 * TA * 4, 128);
+  l.gate = take(off, (size_t)3 * TA * heads * 4, 128);
+  l.total = off;
+  return l;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+stage_a_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqk2,
+               const bf16* __restrict__ m2, Weights w, const bf16* __restrict__ dy,
+               bf16* __restrict__ dx, Operands ops, float* __restrict__ vec_part,
+               float* __restrict__ dwqk_part, float* __restrict__ dm_part,
+               float* __restrict__ da_scratch, Dims d) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int C = d.C, hid = d.hid, mh = d.mh, H = d.heads;
+  const LayoutA L = layout_a(C, hid, mh, H);
+  const int ldu = L.ldu, ldh = L.ldh;
+  bf16* U[5];
+  for (int i = 0; i < 5; ++i) U[i] = reinterpret_cast<bf16*>(smem_raw + L.u[i]);
+  bf16* HB = reinterpret_cast<bf16*>(smem_raw + L.hb);
+  float* F = reinterpret_cast<float*>(smem_raw + L.hb);  // dt4 in float, [TA][C]
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + L.ring);
+  float* st = reinterpret_cast<float*>(smem_raw + L.stats);
+  float *mu1 = st, *r1 = st + TA, *mu2 = st + 2 * TA, *r2 = st + 3 * TA, *mu3 = st + 4 * TA,
+        *r3 = st + 5 * TA;
+  float* mo = reinterpret_cast<float*>(smem_raw + L.mom);
+  float *m1a = mo, *m2a = mo + TA, *m1b = mo + 2 * TA, *m2b = mo + 3 * TA;
+  float* G = reinterpret_cast<float*>(smem_raw + L.gate);
+  float *GT = G + TA * H, *DS = G + 2 * TA * H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y;
+  const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  const size_t BN = (size_t)d.B * d.N;
+  const VecOffsets vo = vec_offsets(C, hid, mh);
+  float* gv = vec_part + blk * vo.total;
+  float* DA = da_scratch + blk * TA * C;
+  const bf16 *W1 = (const bf16*)w.w1, *W2 = (const bf16*)w.w2, *Wpe = (const bf16*)w.wpe,
+             *Wm1 = (const bf16*)w.wm1, *Wm2 = (const bf16*)w.wm2;
+  const bf16 *b1 = (const bf16*)w.b1, *b2 = (const bf16*)w.b2, *bpe = (const bf16*)w.bpe,
+             *g1 = (const bf16*)w.g1, *c1 = (const bf16*)w.c1, *bp = (const bf16*)w.bp,
+             *g2 = (const bf16*)w.g2, *c2 = (const bf16*)w.c2, *bm1 = (const bf16*)w.bm1,
+             *bm2 = (const bf16*)w.bm2, *g3 = (const bf16*)w.g3;
+  bf16 *U0 = U[0], *U1 = U[1], *U2 = U[2], *U3 = U[3], *U4 = U[4];
+  const int tiles = (d.N + TA - 1) / TA;
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int nv = min(TA, d.N - tile * TA);
+    const size_t row0 = (size_t)b * d.N + tile * TA;  // first token's row in [B*N, .]
+
+    // ---- the shared prefix, forward: x in U0 -> t1 in U1 -> t2 in U0 -> t3 in U2
+    load_rows<bf16, TA>(x + row0 * C, nv, C, U0, ldu);
+    __syncthreads();
+    gemm<false>(U0, ldu, C, W1, hid, hid, ring, [&](const Frag& f, int j0) {
+      each_pair(f, j0, [&](int t, int j, float v0, float v1) {
+        const float a0 = rnd<bf16>(gelu(v0 + ldf(b1[j]))), a1 = rnd<bf16>(gelu(v1 + ldf(b1[j + 1])));
+        put2(U1 + t * ldu + j, a0, a1);
+        if (t < nv) put2(ops.t1 + (row0 + t) * hid + j, a0, a1);
+      });
+    });
+    gemm<false>(U1, ldu, hid, W2, C, C, ring, [&](const Frag& f, int j0) {
+      each_pair(f, j0, [&](int t, int j, float v0, float v1) {
+        const float a0 = rnd<bf16>(rnd<bf16>(v0) + ldf(b2[j]));
+        const float a1 = rnd<bf16>(rnd<bf16>(v1) + ldf(b2[j + 1]));
+        put2(U0 + t * ldu + j, a0, a1);
+        if (t < nv) put2(ops.t2 + (row0 + t) * C + j, a0, a1);
+      });
+    });
+    gemm<false>(U0, ldu, C, Wpe, C, C, ring, [&](const Frag& f, int j0) {
+      each_pair(f, j0, [&](int t, int j, float v0, float v1) {
+        put2(U2 + t * ldu + j, rnd<bf16>(v0) + ldf(bpe[j]), rnd<bf16>(v1) + ldf(bpe[j + 1]));
+      });
+    });
+    stats_rows<bf16, TA>(U2, ldu, C, mu1, r1);
+    __syncthreads();
+    // a = LN1(t3), rebuilt where it is read
+    auto a_at = [&](int t, int c) {
+      return rnd<bf16>((ldf(U2[t * ldu + c]) - mu1[t]) * r1[t] * ldf(g1[c]) + ldf(c1[c]));
+    };
+
+    for (int dd = 0; dd < 2; ++dd) {
+      const bf16* wqk = wqk2 + ((size_t)b * 2 + dd) * C * H;
+      const bf16* m = m2 + ((size_t)b * 2 + dd) * H * C;
+      float* gwqk = dwqk_part + (blk * 2 + dd) * C * H;
+      float* gm = dm_part + (blk * 2 + dd) * H * C;
+      const bf16* dyd = dy + (dd * BN + row0) * C;
+      const size_t hrow0 = dd * BN + row0;  // row in the [2, B*N, .] operands
+      auto dy_at = [&](int t, int c) { return t < nv ? ldf(dyd[(size_t)t * C + c]) : 0.f; };
+
+      // ---- this half, forward: t4 in U0, b4 in U1, h1 in HB, t5 in U3
+      for (int o = warp; o < TA * H; o += kWarps) {
+        const int t = o / H, hh = o % H;
+        float sum = 0.f;
+        for (int c = lane; c < C; c += 32) sum += a_at(t, c) * ldf(wqk[c * H + hh]);
+        sum = warp_sum(sum);
+        if (lane == 0) {
+          const float gf = sigmoid(sum * d.scale);
+          G[o] = gf;
+          GT[o] = rnd<bf16>(gf);
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < TA * C; i += kThreads) {
+        const int t = i / C, c = i % C;
+        float o = 0.f;
+        for (int hh = 0; hh < H; ++hh) o = fmaf(GT[t * H + hh], ldf(m[hh * C + c]), o);
+        o = rnd<bf16>(rnd<bf16>(o) + ldf(bp[c]));
+        U0[t * ldu + c] = cvt<bf16>(a_at(t, c) + o);
+      }
+      __syncthreads();
+      stats_rows<bf16, TA>(U0, ldu, C, mu2, r2);
+      __syncthreads();
+      for (int i = tid; i < TA * C; i += kThreads) {
+        const int t = i / C, c = i % C;
+        const bf16 v = cvt<bf16>((ldf(U0[t * ldu + c]) - mu2[t]) * r2[t] * ldf(g2[c]) + ldf(c2[c]));
+        U1[t * ldu + c] = v;
+        if (t < nv) ops.b4[(hrow0 + t) * C + c] = v;
+      }
+      __syncthreads();
+      gemm<false>(U1, ldu, C, Wm1, mh, mh, ring, [&](const Frag& f, int j0) {
+        each_pair(f, j0, [&](int t, int j, float v0, float v1) {
+          const float a0 = rnd<bf16>(gelu(v0 + ldf(bm1[j])));
+          const float a1 = rnd<bf16>(gelu(v1 + ldf(bm1[j + 1])));
+          put2(HB + t * ldh + j, a0, a1);
+          if (t < nv) put2(ops.h1 + (hrow0 + t) * mh + j, a0, a1);
+        });
+      });
+      gemm<false>(HB, ldh, mh, Wm2, C, C, ring, [&](const Frag& f, int j0) {
+        each_pair(f, j0, [&](int t, int j, float v0, float v1) {
+          put2(U3 + t * ldu + j, ldf(U0[t * ldu + j]) + rnd<bf16>(rnd<bf16>(v0) + ldf(bm2[j])),
+               ldf(U0[t * ldu + j + 1]) + rnd<bf16>(rnd<bf16>(v1) + ldf(bm2[j + 1])));
+        });
+      });
+      stats_rows<bf16, TA>(U3, ldu, C, mu3, r3);
+      __syncthreads();
+
+      // ---- final norm, backward: dt5 in U4 (bf16); g3, c3, bm2
+      auto xh3 = [&](int t, int c) { return (ldf(U3[t * ldu + c]) - mu3[t]) * r3[t]; };
+      auto dt5_at = [&](int t, int c) {
+        return ln_bwd_at(dy_at(t, c), ldf(g3[c]), xh3(t, c), r3[t], m1a[t], m2a[t]);
+      };
+      ln_moments(dy_at, xh3, g3, C, m1a, m2a);
+      __syncthreads();
+      for (int c = tid; c < C; c += kThreads) {
+        float sg = 0.f, sc = 0.f, sb = 0.f;
+        for (int t = 0; t < TA; ++t) {
+          const float up = dy_at(t, c), v = dt5_at(t, c);
+          sg += up * xh3(t, c);
+          sc += up;
+          sb += v;
+          const bf16 vd = cvt<bf16>(v);
+          U4[t * ldu + c] = vd;
+          if (t < nv) ops.dt5[(hrow0 + t) * C + c] = vd;
+        }
+        gv[vo.g3 + c] += sg;
+        gv[vo.c3 + c] += sc;
+        gv[vo.bm2 + c] += sb;
+      }
+      __syncthreads();
+
+      // ---- the MLP, backward, 128 hidden columns a pass: h0 = b4 @ Wm1 + bm1
+      // is rebuilt beside dh1 = dt5 @ Wm2^T; dh0 = dh1 * gelu'(h0) in HB; bm1
+      gemm_pair(U1, Wm1, mh, U4, Wm2, C, ldu, C, mh, ring,
+                [&](const Frag& h0, const Frag& dh1, int j0) {
+                  Frag dh;
+                  const int tq = lane & 3;
+#pragma unroll
+                  for (int r = 0; r < TA / 16; ++r)
+#pragma unroll
+                    for (int q = 0; q < 2; ++q)
+#pragma unroll
+                      for (int e = 0; e < 4; ++e) {
+                        const int j = j0 + q * 8 + 2 * tq + (e & 1);
+                        dh.v[r][q][e] = dh1.v[r][q][e] * dgelu(h0.v[r][q][e] + ldf(bm1[j]));
+                      }
+                  col_sums(dh, j0, gv + vo.bm1, [](int, int, float v) { return v; });
+                  each_pair(dh, j0, [&](int t, int j, float v0, float v1) {
+                    put2(HB + t * ldh + j, v0, v1);
+                    if (t < nv) put2(ops.dh0 + (hrow0 + t) * mh + j, v0, v1);
+                  });
+                });
+      // db4 = dh0 @ Wm1^T, rounded into U1 (over b4); g2, c2 from the float sums
+      gemm<true>(HB, ldh, mh, Wm1, mh, C, ring, [&](const Frag& f, int j0) {
+        col_sums(f, j0, gv + vo.c2, [](int, int, float v) { return v; });
+        col_sums(f, j0, gv + vo.g2, [&](int t, int j, float v) {
+          return v * ((ldf(U0[t * ldu + j]) - mu2[t]) * r2[t]);
+        });
+        each_pair(f, j0, [&](int t, int j, float v0, float v1) { put2(U1 + t * ldu + j, v0, v1); });
+      });
+
+      // ---- norm2 and the residual, backward: dt4 = dt5 + LN2'(db4) in F
+      // (float) and in U3 (bf16, over t5, read first by the same thread); bp
+      auto xh2 = [&](int t, int c) { return (ldf(U0[t * ldu + c]) - mu2[t]) * r2[t]; };
+      auto db4_at = [&](int t, int c) { return ldf(U1[t * ldu + c]); };
+      ln_moments(db4_at, xh2, g2, C, m1b, m2b);
+      __syncthreads();
+      for (int c = tid; c < C; c += kThreads) {
+        float sb = 0.f;
+        for (int t = 0; t < TA; ++t) {
+          const float v = dt5_at(t, c) +
+                          ln_bwd_at(db4_at(t, c), ldf(g2[c]), xh2(t, c), r2[t], m1b[t], m2b[t]);
+          sb += v;
+          F[t * C + c] = v;
+          U3[t * ldu + c] = cvt<bf16>(v);
+        }
+        gv[vo.bp + c] += sb;
+      }
+      __syncthreads();
+
+      // ---- the gate, backward: ds; d(m), d(wqk); da += dt4 + ds @ wqk^T
+      for (int o = warp; o < TA * H; o += kWarps) {
+        const int t = o / H, hh = o % H;
+        float sum = 0.f;
+        for (int c = lane; c < C; c += 32) sum += ldf(U3[t * ldu + c]) * ldf(m[hh * C + c]);
+        sum = warp_sum(sum);
+        if (lane == 0) {
+          const float gf = G[o];
+          DS[o] = rnd<bf16>(sum * gf * (1.f - gf) * d.scale);
+        }
+      }
+      for (int i = tid; i < H * C; i += kThreads) {
+        const int hh = i / C, c = i % C;
+        float sum = 0.f;
+        for (int t = 0; t < TA; ++t) sum = fmaf(GT[t * H + hh], ldf(U3[t * ldu + c]), sum);
+        gm[i] += sum;
+      }
+      __syncthreads();
+      for (int i = tid; i < C * H; i += kThreads) {
+        const int c = i / H, hh = i % H;
+        float sum = 0.f;
+        for (int t = 0; t < TA; ++t) sum = fmaf(a_at(t, c), DS[t * H + hh], sum);
+        gwqk[i] += sum;
+      }
+      for (int i = tid; i < TA * C; i += kThreads) {
+        const int t = i / C, c = i % C;
+        float e = 0.f;
+        for (int hh = 0; hh < H; ++hh) e = fmaf(DS[t * H + hh], ldf(wqk[c * H + hh]), e);
+        const float v = F[i] + e;
+        DA[i] = dd ? DA[i] + v : v;
+      }
+      __syncthreads();
+    }
+
+    // ---- the shared prefix, backward. norm1: dt3 in U0; g1, c1, bpe
+    auto xh1 = [&](int t, int c) { return (ldf(U2[t * ldu + c]) - mu1[t]) * r1[t]; };
+    auto dad_at = [&](int t, int c) { return rnd<bf16>(DA[t * C + c]); };
+    ln_moments(dad_at, xh1, g1, C, m1a, m2a);
+    __syncthreads();
+    for (int c = tid; c < C; c += kThreads) {
+      float sg = 0.f, sc = 0.f, sb = 0.f;
+      for (int t = 0; t < TA; ++t) {
+        const float da = DA[t * C + c], xh = xh1(t, c);
+        const float v = ln_bwd_at(rnd<bf16>(da), ldf(g1[c]), xh, r1[t], m1a[t], m2a[t]);
+        sg += da * xh;
+        sc += da;
+        sb += v;
+        const bf16 vd = cvt<bf16>(v);
+        U0[t * ldu + c] = vd;
+        if (t < nv) ops.dt3[(row0 + t) * C + c] = vd;
+      }
+      gv[vo.g1 + c] += sg;
+      gv[vo.c1 + c] += sc;
+      gv[vo.bpe + c] += sb;
+    }
+    __syncthreads();
+    // dt2 = dt3 @ Wpe^T in U1; b2
+    gemm<true>(U0, ldu, C, Wpe, C, C, ring, [&](const Frag& f, int j0) {
+      col_sums(f, j0, gv + vo.b2, [](int, int, float v) { return v; });
+      each_pair(f, j0, [&](int t, int j, float v0, float v1) {
+        put2(U1 + t * ldu + j, v0, v1);
+        if (t < nv) put2(ops.dt2 + (row0 + t) * C + j, v0, v1);
+      });
+    });
+    // t0 = x @ W1 + b1 rebuilt beside dt1 = dt2 @ W2^T; dt0 = dt1 * gelu'(t0) in U4; b1
+    load_rows<bf16, TA>(x + row0 * C, nv, C, U3, ldu);
+    __syncthreads();
+    gemm_pair(U3, W1, hid, U1, W2, C, ldu, C, hid, ring,
+              [&](const Frag& t0, const Frag& dt1, int j0) {
+                Frag g0;
+                const int tq = lane & 3;
+#pragma unroll
+                for (int r = 0; r < TA / 16; ++r)
+#pragma unroll
+                  for (int q = 0; q < 2; ++q)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                      const int j = j0 + q * 8 + 2 * tq + (e & 1);
+                      g0.v[r][q][e] = dt1.v[r][q][e] * dgelu(t0.v[r][q][e] + ldf(b1[j]));
+                    }
+                col_sums(g0, j0, gv + vo.b1, [](int, int, float v) { return v; });
+                each_pair(g0, j0, [&](int t, int j, float v0, float v1) {
+                  put2(U4 + t * ldu + j, v0, v1);
+                  if (t < nv) put2(ops.dt0 + (row0 + t) * hid + j, v0, v1);
+                });
+              });
+    // dx = dt0 @ W1^T
+    gemm<true>(U4, ldu, hid, W1, hid, C, ring, [&](const Frag& f, int j0) {
+      each_pair(f, j0, [&](int t, int j, float v0, float v1) {
+        if (t < nv) put2(dx + (row0 + t) * C + j, v0, v1);
+      });
+    });
+  }
+}
+
+// ---- stage B: dW[M, N] = X^T D over a token range -------------------------
+constexpr int BT = 128;  // output tile: BT x BT, 8 warps as 2 x 4 of 64 x 32
+constexpr int KT = 32;   // tokens per staged tile
+constexpr int SB = 4;    // stages
+constexpr int LDT = BT + 8;
+
+struct Product {    // host-side description, one per weight matrix
+  const void* X;    // [tokens, M] bf16
+  const void* D;    // [tokens, N] bf16
+  void* part;       // [splits, M, N] float
+  int M, N;
+  long long tokens, split;  // tokens per split
+};
+
+constexpr int kMaxProducts = 8;
+struct ProductSet {
+  Product p[kMaxProducts];
+  int first[kMaxProducts + 1];  // first work item of each product
+  int count;
+};
+
+__global__ void __launch_bounds__(kThreads, 2) stage_b_kernel(ProductSet ps) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sA = reinterpret_cast<bf16*>(smem_raw);  // [SB][KT][LDT]
+  bf16* sB = sA + SB * KT * LDT;
+  int pi = 0;
+  while (pi + 1 < ps.count && (int)blockIdx.x >= ps.first[pi + 1]) ++pi;
+  const Product& P = ps.p[pi];
+  const int M = P.M, N = P.N;
+  const int splits = (int)((P.tokens + P.split - 1) / P.split);
+  const int mt = (M + BT - 1) / BT;
+  int item = blockIdx.x - ps.first[pi];
+  const int s = item % splits;
+  item /= splits;
+  const int m0 = (item % mt) * BT, n0 = (item / mt) * BT;
+  const long long t0 = (long long)s * P.split, t1 = min(t0 + P.split, P.tokens);
+  const bf16* X = (const bf16*)P.X;
+  const bf16* D = (const bf16*)P.D;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int nk = (int)((t1 - t0 + KT - 1) / KT);
+
+  auto load = [&](int kt) {
+    const int slot = kt % SB;
+    const long long base = t0 + (long long)kt * KT;
+    for (int c = tid; c < 2 * KT * BT / 8; c += kThreads) {
+      const int which = c / (KT * BT / 8), cc = c % (KT * BT / 8);
+      const int r = cc / (BT / 8), col = (cc % (BT / 8)) * 8;
+      const long long tok = base + r;
+      if (which == 0) {
+        const bool ok = tok < t1 && m0 + col < M;
+        cp_async16(sA + (slot * KT + r) * LDT + col, ok ? X + tok * M + m0 + col : X, ok);
+      } else {
+        const bool ok = tok < t1 && n0 + col < N;
+        cp_async16(sB + (slot * KT + r) * LDT + col, ok ? D + tok * N + n0 + col : D, ok);
+      }
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll
+  for (int st = 0; st < SB - 1; ++st) {
+    if (st < nk) load(st);
+    cp_async_commit();
+  }
+  const int q = lane >> 3, rr = lane & 7;
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<SB - 2>();
+    __syncthreads();
+    if (kt + SB - 1 < nk) load(kt + SB - 1);
+    cp_async_commit();
+    const bf16* a_t = sA + (kt % SB) * KT * LDT;
+    const bf16* b_t = sB + (kt % SB) * KT * LDT;
+#pragma unroll
+    for (int ks = 0; ks < KT / 16; ++ks) {
+      unsigned a[4][4], bb[2][4];
+      // A = X^T: stored [token][m], so ldmatrix .trans gives the row-major fragment
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldsm_x4_t(a[i], a_t + (ks * 16 + (q >> 1) * 8 + rr) * LDT + wm + i * 16 + (q & 1) * 8);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+        ldsm_x4_t(bb[jj], b_t + (ks * 16 + (q & 1) * 8 + rr) * LDT + wn + jj * 16 + (q >> 1) * 8);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jn = 0; jn < 4; ++jn)
+          mma16816(acc[i][jn], a[i], bb[jn >> 1][(jn & 1) * 2], bb[jn >> 1][(jn & 1) * 2 + 1]);
+    }
+  }
+  cp_async_wait<0>();
+
+  float* out = (float*)P.part + (size_t)s * M * N;
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int mm = m0 + wm + i * 16 + g + 8 * h, nn = n0 + wn + jn * 8 + 2 * tq;
+        if (mm < M && nn < N)
+          *reinterpret_cast<float2*>(out + (size_t)mm * N + nn) =
+              make_float2(acc[i][jn][2 * h], acc[i][jn][2 * h + 1]);
+      }
+}
+
+// ---- the reduction ---------------------------------------------------------
+struct Segment {  // out[g * n + e] = sum over p < nparts of part[g * gstride + p * pstride + e]
+  const void* part;
+  void* out;
+  long long n, pstride, gstride;
+  int nparts, groups;
+};
+
+constexpr int kMaxSegments = 24;
+struct SegmentSet {
+  Segment s[kMaxSegments];
+  long long first[kMaxSegments + 1];  // first output element of each segment
+  int count;
+};
+
+__global__ void reduce_kernel(SegmentSet ss) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const long long g = i / n, e = i % n;
-  const float* p = part + g * nparts * n + e;
-  float s = 0.f;
-  for (int k = 0; k < nparts; ++k) s += p[(long long)k * n];
-  out[i] = s;
+  if (i >= ss.first[ss.count]) return;
+  int k = 0;
+  while (i >= ss.first[k + 1]) ++k;
+  const Segment& S = ss.s[k];
+  const long long local = i - ss.first[k], g = local / S.n, e = local % S.n;
+  const float* p = (const float*)S.part + g * S.gstride + e;
+  float sum = 0.f;
+  for (int j = 0; j < S.nparts; ++j) sum += p[(long long)j * S.pstride];
+  ((float*)S.out)[local] = sum;
 }
 
 Weights make_weights(const void* const* ws) {
@@ -866,21 +1439,6 @@ int launch_fwd(const void* x, const void* wqk2, const void* m2, const Weights& w
   const dim3 grid((d.N + TOK - 1) / TOK, d.B);
   fwd_kernel<T, TOK><<<grid, kThreads, smem, stream>>>((const T*)x, (const T*)wqk2,
                                                        (const T*)m2, w, (T*)y, d);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int TOK>
-int launch_bwd(const void* x, const void* wqk2, const void* m2, const Weights& w,
-               const void* dy, void* dx, float* dwqk_part, float* dm_part, float* dw_part,
-               int per_image, Dims d, cudaStream_t stream) {
-  const size_t smem = make_layout<T>(TOK, d.C, d.hid, d.chunk, d.heads, true).total;
-  cudaError_t err = cudaFuncSetAttribute(bwd_kernel<T, TOK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(per_image, d.B);
-  bwd_kernel<T, TOK><<<grid, kThreads, smem, stream>>>(
-      (const T*)x, (const T*)wqk2, (const T*)m2, w, (const T*)dy, (T*)dx, dwqk_part, dm_part,
-      dw_part, d);
   return (int)cudaGetLastError();
 }
 
@@ -908,40 +1466,94 @@ int cavp_fusion_train_fwd(int dtype, const void* x, const void* wqk2, const void
   return (int)cudaErrorInvalidValue;
 }
 
-// dy [2, B, N, C] and dx [B, N, C] in the IO type. The partial sets are
-// float and zeroed by the caller: dw_part [B * per_image, total] (the 17
-// gradients back to back, in the order of ws), dwqk_part [B, per_image, 2,
-// C, heads], dm_part [B, per_image, 2, heads, C]. per_image blocks walk each
-// image's token tiles of `tokens` tokens (float32: 16, bf16: 32).
-int cavp_fusion_train_bwd(int dtype, const void* x, const void* wqk2, const void* m2,
-                          const void* const* ws, const void* dy, void* dx, void* dwqk_part,
-                          void* dm_part, void* dw_part, int per_image, int tokens, int B,
-                          int N, int C, int hidden, int mlp_hidden, int heads, float scale,
-                          void* stream) {
-  const Weights w = make_weights(ws);
-  Dims d{B, N, C, hidden, mlp_hidden, heads, 128, scale};
-  const cudaStream_t s = (cudaStream_t)stream;
-  float *pq = (float*)dwqk_part, *pm = (float*)dm_part, *pw = (float*)dw_part;
-  if (per_image < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && tokens == 16 && !(C % 4 || hidden % 4 || mlp_hidden % 4))
-    return launch_bwd<float, 16>(x, wqk2, m2, w, dy, dx, pq, pm, pw, per_image, d, s);
-  if (dtype == 1 && !(C % 16 || hidden % 16 || mlp_hidden % 16)) {
-    if (tokens == 32) {
-      d.chunk = 64;  // what 32 tokens leave room for
-      return launch_bwd<bf16, 32>(x, wqk2, m2, w, dy, dx, pq, pm, pw, per_image, d, s);
-    }
-  }
-  return (int)cudaErrorInvalidValue;
+// The float32 backward in one launch, tiles of 16 tokens: dy [2, B, N, C]
+// and dx [B, N, C] float. The partial sets are float and zeroed by the
+// caller: dw_part [B * per_image, total] (the 17 gradients back to back, in
+// the order of ws), dwqk_part [B, per_image, 2, C, heads], dm_part [B,
+// per_image, 2, heads, C]; per_image blocks walk each image's tiles.
+int cavp_fusion_train_bwd_f32(const void* x, const void* wqk2, const void* m2,
+                              const void* const* ws, const void* dy, void* dx, void* dwqk_part,
+                              void* dm_part, void* dw_part, int per_image, int B, int N, int C,
+                              int hidden, int mlp_hidden, int heads, float scale, void* stream) {
+  if (per_image < 1 || C % 4 || hidden % 4 || mlp_hidden % 4) return (int)cudaErrorInvalidValue;
+  const Dims d{B, N, C, hidden, mlp_hidden, heads, 128, scale};
+  const size_t smem = make_layout<float>(16, C, hidden, d.chunk, heads, true).total;
+  cudaError_t err = cudaFuncSetAttribute(bwd_kernel<float, 16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  bwd_kernel<float, 16><<<dim3(per_image, B), kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)wqk2, (const float*)m2, make_weights(ws), (const float*)dy,
+      (float*)dx, (float*)dwqk_part, (float*)dm_part, (float*)dw_part, d);
+  return (int)cudaGetLastError();
 }
 
-// out[g, i] = sum over p < nparts of part[g, p, i], i < n; float arrays.
-int cavp_fusion_train_reduce(const void* part, void* out, int groups, int nparts,
-                             long long n, void* stream) {
-  const long long total = (long long)groups * n;
+// Stage A of the bf16 backward. x, dy, dx as above in bf16; ops: a host
+// array of the 9 operand pointers in the order t1 [B*N, hidden], t2, dt3,
+// dt2 [B*N, C], dt0 [B*N, hidden], b4 [2, B*N, C], h1 [2, B*N, mlp_hidden],
+// dt5 [2, B*N, C], dh0 [2, B*N, mlp_hidden]. Float, zeroed by the caller:
+// vec_part [B * per_image, vec total] (b1, b2, bpe, g1, c1, bp, g2, c2, bm1,
+// bm2, g3, c3 back to back), dwqk_part and dm_part as above; da_scratch
+// [B * per_image, 32, C] float, no initial value. Needs C, hidden and
+// mlp_hidden multiples of 16 and mlp_hidden >= 2 C - 8.
+int cavp_fusion_train_bwd_a(const void* x, const void* wqk2, const void* m2,
+                            const void* const* ws, const void* dy, void* dx,
+                            void* const* ops, void* vec_part, void* dwqk_part, void* dm_part,
+                            void* da_scratch, int per_image, int B, int N, int C, int hidden,
+                            int mlp_hidden, int heads, float scale, void* stream) {
+  if (per_image < 1 || C % 16 || hidden % 16 || mlp_hidden % 16 || mlp_hidden + 8 < 2 * C)
+    return (int)cudaErrorInvalidValue;
+  const Dims d{B, N, C, hidden, mlp_hidden, heads, 0, scale};
+  const size_t smem = layout_a(C, hidden, mlp_hidden, heads).total;
+  cudaError_t err = cudaFuncSetAttribute(stage_a_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  bf16* const* o = (bf16* const*)ops;
+  const Operands op{o[0], o[1], o[2], o[3], o[4], o[5], o[6], o[7], o[8]};
+  stage_a_kernel<<<dim3(per_image, B), kThreads, smem, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const bf16*)wqk2, (const bf16*)m2, make_weights(ws), (const bf16*)dy,
+      (bf16*)dx, op, (float*)vec_part, (float*)dwqk_part, (float*)dm_part, (float*)da_scratch,
+      d);
+  return (int)cudaGetLastError();
+}
+
+// Stage B: for each of `count` products (a host array of Product: X [tokens,
+// M] and D [tokens, N] bf16, M and N multiples of 16; part [splits, M, N]
+// float with splits = ceil(tokens / split)), part[s] = X[range s]^T D[range s].
+int cavp_fusion_train_bwd_b(const void* products, int count, void* stream) {
+  if (count < 1 || count > kMaxProducts) return (int)cudaErrorInvalidValue;
+  ProductSet ps;
+  ps.count = count;
+  ps.first[0] = 0;
+  for (int i = 0; i < count; ++i) {
+    const Product& P = ((const Product*)products)[i];
+    if (P.M % 16 || P.N % 16 || P.tokens < 1 || P.split < 1) return (int)cudaErrorInvalidValue;
+    ps.p[i] = P;
+    const long long splits = (P.tokens + P.split - 1) / P.split;
+    ps.first[i + 1] = ps.first[i] + (int)(splits * ((P.M + BT - 1) / BT) * ((P.N + BT - 1) / BT));
+  }
+  const int smem = 2 * SB * KT * LDT * 2;
+  cudaError_t err =
+      cudaFuncSetAttribute(stage_b_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  stage_b_kernel<<<ps.first[count], kThreads, smem, (cudaStream_t)stream>>>(ps);
+  return (int)cudaGetLastError();
+}
+
+// The fixed-order reduction of `count` segments (a host array of Segment).
+int cavp_fusion_train_reduce(const void* segments, int count, void* stream) {
+  if (count < 1 || count > kMaxSegments) return (int)cudaErrorInvalidValue;
+  SegmentSet ss;
+  ss.count = count;
+  ss.first[0] = 0;
+  for (int i = 0; i < count; ++i) {
+    ss.s[i] = ((const Segment*)segments)[i];
+    if (ss.s[i].n < 1 || ss.s[i].nparts < 1 || ss.s[i].groups < 1)
+      return (int)cudaErrorInvalidValue;
+    ss.first[i + 1] = ss.first[i] + ss.s[i].n * ss.s[i].groups;
+  }
   const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  reduce_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)part, (float*)out, nparts, n, total);
+  const long long blocks = (ss.first[count] + threads - 1) / threads;
+  reduce_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(ss);
   return (int)cudaGetLastError();
 }
 

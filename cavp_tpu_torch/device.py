@@ -1,10 +1,10 @@
 """Where the port's entry points put their tensors.
 
 Every entry point that allocates (``build_model``, ``Predictor``,
-``eval_metrics_init``, ``init_bank``, ``create_train_state``,
-``init_state``) takes ``device=None``, which means the CUDA card. The
-port never picks the CPU on its own: a caller that wants it (the CPU
-tests do) passes ``device="cpu"``.
+``eval_metrics_init``, ``miou_init``, ``fg_init``, ``init_bank``,
+``create_train_state``, ``init_state``) takes ``device=None``, which means
+the CUDA card. The port never picks the CPU on its own: a caller that
+wants it (the CPU tests do) passes ``device="cpu"``.
 """
 
 from __future__ import annotations

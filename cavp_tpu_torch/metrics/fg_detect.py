@@ -12,10 +12,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from cavp_tpu_torch.device import resolve_device
 
-def fg_init(num_classes: int, device="cpu") -> torch.Tensor:
+
+def fg_init(num_classes: int, device=None) -> torch.Tensor:
+    """A zeroed confusion matrix on ``device`` (default: the CUDA card)."""
     return torch.zeros((num_classes, num_classes), dtype=torch.float64,
-                       device=device)
+                       device=resolve_device(device))
 
 
 def fg_update_weighted(confusions: Tuple[torch.Tensor, ...], pred: torch.Tensor,

@@ -14,6 +14,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from cavp_tpu_torch.device import resolve_device
+
 
 class MIoUState(NamedTuple):
     inter: torch.Tensor    # [num_classes]
@@ -22,7 +24,9 @@ class MIoUState(NamedTuple):
     labeled: torch.Tensor  # scalar
 
 
-def miou_init(num_classes: int, device="cpu") -> MIoUState:
+def miou_init(num_classes: int, device=None) -> MIoUState:
+    """Zeroed accumulators on ``device`` (default: the CUDA card)."""
+    device = resolve_device(device)
     z = torch.zeros((num_classes,), dtype=torch.float64, device=device)
     s = torch.zeros((), dtype=torch.float64, device=device)
     return MIoUState(z, z.clone(), s, s.clone())

@@ -24,12 +24,16 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
    plain PyTorch versions: float32 with TF32 off and bf16 at
    [32, 3136, 304], float32 at a ragged token count (3199) and at C = 112;
    every one of dx, dwqk, dm and the 17 weight gradients is compared, two
-   backward launches must give bit-equal gradients, and the kernels are
-   timed beside the plain forward and autograd through the module path;
+   backward launches must give bit-equal gradients; the bf16 backward's
+   three launches are also held apart (stage A's operands against the plain
+   backward's, stage B + the reduction against float32 products of the same
+   operands) and timed one by one, and the kernels are timed beside their
+   plain versions and autograd through the module path;
 7. takes train steps through ``make_train_step`` (avss, batch 32, 224x224,
    bf16, ``use_pallas_fusion_train``): one at epoch 0 and three at epoch 1,
    checks the loss, the CoroCL term, that every optimizer group and the
-   sound bank moved and that each step launched each train kernel once,
+   sound bank moved and that each step launched the forward and each of the
+   backward's three kernels once,
    then takes the same steps from the same state on the module path and
    prints step time, frames/s and peak memory of both;
 8. holds the log-mel kernel against its plain version and against the
@@ -381,6 +385,23 @@ def eval_phase(config, model, device, batch: int = EVAL_BATCH, iters: int = 5) -
     return {k: statistics.median(v) for k, v in fps.items()}
 
 
+def plain_split_products(plan, reduce: bool = True) -> dict:
+    """Stage B's plain version on a backward plan's own operands: float32
+    products over ``SPLIT_TOKENS``-token ranges, summed in split order (or
+    left as the list of partials)."""
+    import torch
+
+    from cavp_tpu_torch.ops.kernels import fusion_train as ft
+
+    out = {}
+    for k, a, b in ft.PRODUCTS:
+        xa, xb = plan.operands[a], plan.operands[b]
+        parts = [pa.float().t() @ pb.float() for pa, pb in
+                 zip(torch.split(xa, ft.SPLIT_TOKENS), torch.split(xb, ft.SPLIT_TOKENS))]
+        out[k] = sum(parts[1:], parts[0]) if reduce else parts
+    return out
+
+
 def train_kernel_phase(model, small_model, device) -> dict:
     """Phase 6: the train fusion kernels against their plain versions."""
     import torch
@@ -460,8 +481,42 @@ def train_kernel_phase(model, small_model, device) -> dict:
     compare("bf16_c112", small_model, 3, 7 * 9 + 16, torch.bfloat16)
     results["fwd_err"], results["bwd_err"], _ = compare("bf16", model, B, N, torch.bfloat16)
 
-    # times at the train step's shape, bf16
+    # the bf16 backward's stages at the train step's shape, each against its
+    # plain version: stage A's operands against the plain backward's, stage
+    # B + the reduction against float32 products of stage A's own operands
+    # (the same bf16 inputs: only the float summation order differs)
     x, fea_a, dy, wqk2, m2, ws = operands(model, B, N, torch.bfloat16)
+    saved = dict(ft.token_chain_train_backward.launches)
+    plan = ft._BackwardPlan(x, wqk2, m2, ws, dy, 4)
+    with torch.no_grad():
+        plan.stage_a()
+        plan.stage_b()
+        plan.reduce()
+        torch.cuda.synchronize()
+        *_, plain_vec, plain_ops = ft._backward_parts(x, wqk2, m2, ws, dy, 4)
+        stage_a_rel, stage_a_abs = {}, 0.0
+        for k, r in plain_ops.items():
+            err = float((plan.operands[k].float() - r.float()).abs().max())
+            stage_a_rel[k] = err / (float(r.float().abs().max()) + 1e-30)
+            stage_a_abs = max(stage_a_abs, err)
+        dws = dict(zip(ft.WEIGHT_NAMES, plan.dws))
+        stage_b_rel, stage_b_abs = {}, 0.0
+        for k, ref in plain_split_products(plan).items():
+            err = float((dws[k] - ref).abs().max())
+            stage_b_rel[k] = err / float(ref.abs().max())
+            stage_b_abs = max(stage_b_abs, err)
+        del plain_vec, plain_ops, ref
+    print(f"[train-kernel] bf16 {list(TRAIN_SHAPE)} stage A's operands against the plain "
+          f"backward's, max error over max|operand| (limit {GRAD_BF16_REL}): "
+          + ", ".join(f"{k} {v:.1e}" for k, v in stage_a_rel.items()))
+    print(f"[train-kernel] bf16 {list(TRAIN_SHAPE)} stage B + reduction against float32 "
+          f"products of stage A's operands in {ft.SPLIT_TOKENS}-token splits (limit "
+          f"{GRAD_F32_REL}): " + ", ".join(f"{k} {v:.1e}" for k, v in stage_b_rel.items()))
+    require(max(stage_a_rel.values()) <= GRAD_BF16_REL, "stage A's operands disagree")
+    require(max(stage_b_rel.values()) <= GRAD_F32_REL, "stage B's products disagree")
+    results["stage_a_err"], results["stage_b_err"] = stage_a_abs, stage_b_abs
+
+    # times at the train step's shape, bf16
     side = int(N ** 0.5)
     dy_map = tokens_to_map(dy, side, side)
 
@@ -483,22 +538,30 @@ def train_kernel_phase(model, small_model, device) -> dict:
     arms = {
         "fwd": lambda: ft.token_chain_train(x, wqk2, m2, ws),
         "bwd": lambda: ft.token_chain_train_backward(x, wqk2, m2, ws, dy),
+        "stage_a": plan.stage_a, "stage_b": plan.stage_b, "reduce": plan.reduce,
+        "plain_stage_a": lambda: ft._backward_parts(x, wqk2, m2, ws, dy, 4),
+        "plain_stage_b": lambda: plain_split_products(plan, reduce=False),
+        "plain_reduce": lambda: [p.sum(0) for p in plan.parts.values()],
         "plain_fwd": lambda: ft.token_chain_train_reference(x, wqk2, m2, ws),
         "plain_bwd": lambda: ft.token_chain_train_backward_reference(x, wqk2, m2, ws, dy),
         "module_fwd": module_fwd, "module_fwd_bwd": module_fwd_bwd,
         "wrapper_fwd_bwd": wrapper_fwd_bwd,
     }
-    launches = (ft.token_chain_train.launches, ft.token_chain_train_backward.launches)
+    fwd_launches = ft.token_chain_train.launches
     iters, times = 5, {k: [] for k in arms}
     order = list(arms) + list(reversed(arms))
     for arm in order:
         times[arm].append(cuda_ms(arms[arm], iters))
-    ft.token_chain_train.launches, ft.token_chain_train_backward.launches = launches
+    ft.token_chain_train.launches = fwd_launches
+    ft.token_chain_train_backward.launches.update(saved)
     for k in arms:
         results[f"{k}_ms"] = statistics.median(times[k])
     print(f"[train-kernel] time at {list(TRAIN_SHAPE)} bf16, median of {iters}, each arm "
           f"twice (forward order, then reversed): "
           + "; ".join(f"{k} {' / '.join(f'{t:.3f}' for t in times[k])} ms" for k in arms))
+    print(f"[train-kernel] bf16 backward: stage A {results['stage_a_ms']:.3f} ms, stage B "
+          f"{results['stage_b_ms']:.3f} ms, reduction {results['reduce_ms']:.3f} ms (one "
+          f"launch each per backward); whole wrapper {results['bwd_ms']:.3f} ms")
 
     tokens = B * N
     hidden, mlp_hidden = ws[0].shape[1], ws[11].shape[1]
@@ -510,9 +573,27 @@ def train_kernel_phase(model, small_model, device) -> dict:
     # recompute, the products for dx, the products for the weight gradients;
     # reads x and both dy halves, writes dx and the float weight gradients
     results["bwd_bound"] = bound_ms(3 * fwd_flops, 4 * io + weight_bytes * 3)
+    # stage A: the forward's products and their mirrors for dx; reads x, dy,
+    # writes dx and the bf16 operands of stage B
+    op_bytes = sum(t.numel() * 2 for k, t in plan.operands.items() if k != "x")
+    results["stage_a_bound"] = bound_ms(2 * fwd_flops, 4 * io + weight_bytes + op_bytes)
+    # stage B: reads its operands once, writes the float partials
+    wgrad_flops = sum(2 * plan.operands[a].shape[0] * plan.operands[a].shape[1]
+                      * plan.operands[b].shape[1] for _, a, b in ft.PRODUCTS)
+    part_bytes = sum(p.numel() * 4 for p in plan.parts.values())
+    results["stage_b_bound"] = bound_ms(wgrad_flops, io + op_bytes + part_bytes)
+    # the reduction: reads every partial set, writes the gradients
+    red_bytes = (part_bytes + 4 * (plan.vec_part.numel() + plan.dwqk_part.numel()
+                                   + plan.dm_part.numel() + plan.dw.numel()
+                                   + plan.dwqk2.numel() + plan.dm2.numel()))
+    results["reduce_bound"] = bound_ms(red_bytes / 4, red_bytes)
     print(f"[train-kernel] bounds at 989 TFLOP/s bf16 and 3.35 TB/s: forward "
           f"{results['fwd_bound'][0]:.3f} ms, backward {results['bwd_bound'][0]:.3f} ms "
-          f"(both by {results['fwd_bound'][1]})")
+          f"(both by {results['fwd_bound'][1]}); stage A {results['stage_a_bound'][0]:.3f} "
+          f"ms by {results['stage_a_bound'][1]}, stage B {results['stage_b_bound'][0]:.3f} ms "
+          f"by {results['stage_b_bound'][1]}, reduction {results['reduce_bound'][0]:.4f} ms "
+          f"by {results['reduce_bound'][1]}")
+    del plan
     return results
 
 
@@ -565,10 +646,14 @@ def train_phase(config, device, profile: bool) -> dict:
         return losses, steady, peak
 
     # the main path: the counts are read from these steps only
-    ft.token_chain_train.launches = ft.token_chain_train_backward.launches = 0
+    ft.token_chain_train.launches = 0
+    ft.token_chain_train_backward.launches.update(dict.fromkeys(
+        ft.token_chain_train_backward.launches, 0))
     k_losses, k_ms, k_peak = run(cfg, "kernel arm")
-    launches = (ft.token_chain_train.launches, ft.token_chain_train_backward.launches)
-    require(launches == (len(epochs), len(epochs)),
+    launches = dict(fwd=ft.token_chain_train.launches, **ft.token_chain_train_backward.launches)
+    expected = dict(fwd=len(epochs), stage_a=len(epochs), stage_b=len(epochs),
+                    reduce=len(epochs), f32=0)
+    require(launches == expected,
             f"train kernels launched {launches} times in {len(epochs)} steps")
     require(state.step == len(epochs), f"step count {state.step}")
     moved = {g: False for g in GROUPS}
@@ -601,6 +686,8 @@ def train_phase(config, device, profile: bool) -> dict:
     print(f"[train] first step's loss: kernel arm {k_losses[0]:.5f}, module arm "
           f"{m_losses[0]:.5f}, relative difference {rel:.2e} (limit {LOSS_REL})")
     require(rel <= LOSS_REL, "the kernel arm's first loss is off the module arm's")
+    print(f"[train] batch {TRAIN_BATCH}, one run: kernel arm {k_ms:.1f} ms a step, peak "
+          f"{k_peak:.2f} GiB; module arm {m_ms:.1f} ms a step, peak {m_peak:.2f} GiB")
     del state, start, before
     torch.cuda.empty_cache()
     return {"launches": launches, "kernel_ms": k_ms, "module_ms": m_ms,
@@ -1046,16 +1133,26 @@ def main() -> int:
          "library_ms": None},
         {"name": "fusion_train_fwd", "route": "cuda", "source": train_source,
          "replaces": "cavp_tpu/ops/pallas/fusion_train_kernel.py:280",
-         "launches": train["launches"][0], "max_abs_err": tres["fwd_err"],
+         "launches": train["launches"]["fwd"], "max_abs_err": tres["fwd_err"],
          "ms": tres["fwd_ms"], "plain_ms": tres["plain_fwd_ms"],
          "bound_ms": tres["fwd_bound"][0], "bound_by": tres["fwd_bound"][1],
          "library_ms": None},
         {"name": "fusion_train_bwd", "route": "cuda", "source": train_source,
          "replaces": "cavp_tpu/ops/pallas/fusion_train_kernel.py:312",
-         "launches": train["launches"][1], "max_abs_err": tres["bwd_err"],
+         "launches": train["launches"]["stage_a"], "max_abs_err": tres["bwd_err"],
          "ms": tres["bwd_ms"], "plain_ms": tres["plain_bwd_ms"],
          "bound_ms": tres["bwd_bound"][0], "bound_by": tres["bwd_bound"][1],
-         "library_ms": None},
+         "library_ms": None,
+         "stages": ["fusion_train_bwd_stage_a", "fusion_train_bwd_stage_b",
+                    "fusion_train_bwd_reduce"]},
+        *({"name": f"fusion_train_bwd_{k}", "route": "cuda", "source": train_source,
+           "replaces": "cavp_tpu/ops/pallas/fusion_train_kernel.py:341",
+           "launches": train["launches"][k], "max_abs_err": err,
+           "ms": tres[f"{k}_ms"], "plain_ms": tres[f"plain_{k}_ms"],
+           "bound_ms": tres[f"{k}_bound"][0], "bound_by": tres[f"{k}_bound"][1],
+           "library_ms": None}
+          for k, err in (("stage_a", tres["stage_a_err"]), ("stage_b", tres["stage_b_err"]),
+                         ("reduce", tres["stage_b_err"]))),
         {"name": "fused_log_mel", "route": "cuda",
          "source": "cavp_tpu_torch/csrc/mel_kernel.cu",
          "replaces": "cavp_tpu/ops/pallas/mel_kernel.py:66",

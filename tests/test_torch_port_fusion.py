@@ -26,6 +26,7 @@ from cavp_tpu_torch.models.cavp import CAVP
 from cavp_tpu_torch.models.layers import Mlp
 from cavp_tpu_torch.ops import _build
 from cavp_tpu_torch.ops.kernels import fusion
+from torch_port_common import release_after_module  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=5e-5)
 C = 304

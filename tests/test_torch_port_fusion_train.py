@@ -10,12 +10,21 @@ module path (``CAVP.forward_fusion(dup=2)``), on the same weights and
 inputs made from numpy seeds, at C = 304 with a divisor (8x8) and a
 ragged (7x9) token count.
 
+The bf16 backward on the card is three launches (stage A's operands, stage
+B's split-K weight gradients, a fixed-order reduction); its plain version,
+``token_chain_train_backward_two_stage``, is held here against the plain
+backward and against ``jax.vjp`` of the Pallas token chain, with split
+boundaries inside a 32-token tile, a ragged token count and B = 1.
+
 Tolerances (f32), as tests/test_fusion_train_kernel.py: forward rtol 1e-4
 / atol 5e-5 (the Pallas kernel's rational erf is within 1.5e-7 of exact
 erf, which the MLP sums amplify to a few e-5); every gradient within
 1e-4 of its largest entry (the gradients see that deviation twice,
 through the recompute).
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,6 +42,7 @@ from cavp_tpu_torch.engine.convert import (
 from cavp_tpu_torch.models.cavp import map_to_tokens, tokens_to_map
 from cavp_tpu_torch.ops.kernels import fusion_train as ft
 from test_torch_port_fusion import FusionSlice, _jax_fusion_params
+from torch_port_common import release_after_module  # noqa: F401 (autouse)
 
 FWD_TOL = dict(rtol=1e-4, atol=5e-5)
 GRAD_REL = 1e-4
@@ -118,10 +128,11 @@ def test_backward_on_cpu_matches_jax_vjp_and_module_autograd(weights, hw):
     ref["fea_v"] = torch.from_numpy(np.array(gv)).reshape(B, -1, C)
     ref["fea_a"] = torch.from_numpy(np.array(ga))
 
-    launches = ft.token_chain_train_backward.launches
+    launches = dict(ft.token_chain_train_backward.launches)
     kernel_path = _port_grads(port, lambda t, a: ft.fusion_train(port, t, a),
                               fea_v, fea_a, wsum, hw)
-    assert ft.token_chain_train_backward.launches == launches == 0
+    assert ft.token_chain_train_backward.launches == launches
+    assert not any(launches.values())
     _assert_grads_close(kernel_path, ref, "autograd.Function vs jax.grad of the Pallas path")
 
     module_path = _port_grads(
@@ -191,3 +202,91 @@ def test_wrapper_never_falls_back_off_the_cpu(weights):
                                       torch.zeros(2, 4, C))
     with pytest.raises(ValueError, match="operand w1"):
         ft.token_chain_train(torch.zeros(2, 4, C), wqk2, m2, [ws[1]] + ws[1:])
+
+
+# (B, (h, w), tokens per split): the default split (one per product); 40
+# tokens, so that split boundaries fall inside stage A's 32-token tiles and
+# the 2BN-token products take more splits than the others; B = 1
+TWO_STAGE = {"ragged": (2, (7, 9), ft.SPLIT_TOKENS), "split_inside_tile": (2, (7, 9), 40),
+             "b1": (1, (8, 8), 48)}
+
+
+def _chain_inputs(port, B, hw, seed):
+    rng = np.random.RandomState(seed)
+    n = hw[0] * hw[1]
+    x = torch.from_numpy(rng.randn(B, n, C).astype(np.float32))
+    fea_a = rng.randn(2 * B, C).astype(np.float32)
+    dy = torch.from_numpy(rng.randn(2 * B, n, C).astype(np.float32))
+    with torch.no_grad():
+        wqk2, m2, ws = ft.train_operands(port, torch.from_numpy(fea_a), B, torch.float32)
+    return x, wqk2.detach(), m2.detach(), [w.detach() for w in ws], dy
+
+
+def _assert_flat_close(got, ref, what):
+    names = ("dx", "dwqk2", "dm2") + ft.WEIGHT_NAMES
+    got = [got[0], got[1], got[2], *got[3]]
+    ref = [ref[0], ref[1], ref[2], *ref[3]]
+    for k, a, r in zip(names, got, ref):
+        a, r = torch.tensor(np.array(a)).float(), torch.tensor(np.array(r)).float()
+        assert a.shape == r.reshape(a.shape).shape, (what, k)
+        scale = float(r.abs().max()) + 1e-12
+        np.testing.assert_allclose(a.numpy(), r.reshape(a.shape).numpy(), rtol=0,
+                                   atol=GRAD_REL * scale, err_msg=f"{what}: {k}")
+
+
+@pytest.mark.parametrize("case", sorted(TWO_STAGE))
+def test_two_stage_backward_matches_plain_backward(weights, case):
+    B, hw, split = TWO_STAGE[case]
+    x, wqk2, m2, ws, dy = _chain_inputs(weights[1], B, hw, seed=5)
+    tokens = B * hw[0] * hw[1]
+    if case != "ragged":
+        assert tokens % split and split % 32 and tokens > split
+    got = ft.token_chain_train_backward_two_stage(x, wqk2, m2, ws, dy, split_tokens=split)
+    ref = ft.token_chain_train_backward_reference(x, wqk2, m2, ws, dy)
+    assert got[0].dtype == torch.float32 and all(g.dtype == torch.float32 for g in got[3])
+    _assert_flat_close(got, ref, f"two-stage vs plain backward ({case})")
+
+
+@pytest.mark.parametrize("case", sorted(TWO_STAGE))
+def test_two_stage_backward_matches_jax_pallas_vjp(weights, case):
+    """``jax.vjp`` of the JAX package's token chain, its Pallas forward and
+    backward kernels in interpret mode, on the same operands."""
+    B, hw, split = TWO_STAGE[case]
+    x, wqk2, m2, ws, dy = _chain_inputs(weights[1], B, hw, seed=6)
+    jws = [jnp.asarray(w.numpy()).reshape(1, -1) if w.dim() == 1 else jnp.asarray(w.numpy())
+           for w in ws]
+    _, vjp = jax.vjp(lambda *a: jax_ft._token_chain(4, True, *a), jnp.asarray(x.numpy()),
+                     jnp.asarray(wqk2.numpy()), jnp.asarray(m2.numpy()), *jws)
+    out = vjp((jnp.asarray(dy[:B].numpy()), jnp.asarray(dy[B:].numpy())))
+    ref = (out[0], out[1], out[2], list(out[3:]))
+    got = ft.token_chain_train_backward_two_stage(x, wqk2, m2, ws, dy, split_tokens=split)
+    _assert_flat_close(got, ref, f"two-stage vs the Pallas VJP ({case})")
+
+
+def test_backward_bindings_follow_the_kernel_source():
+    """The wrapper's operand, vector and record orders against
+    ``csrc/fusion_train_kernel.cu``, which only the card runs."""
+    src = (Path(ft.__file__).parents[2] / "csrc" / "fusion_train_kernel.cu").read_text()
+    src = re.sub(r"//[^\n]*", "", src)
+
+    def fields(struct):
+        body = re.search(r"struct %s \{(.*?)\};" % struct, src, re.S).group(1)
+        return re.findall(r"(\w+)\s*[,;]", body)
+
+    assert fields("Operands") == [name for name, _, _ in ft._OPERANDS]
+    order = re.findall(r"o\.(\w+) = o\.\w+ \+", src)
+    assert ["b1"] + order[:-1] == list(ft.VECTORS) and order[-1] == "total"
+    assert fields("Product") == [f for f, _ in ft._Product._fields_]
+    assert fields("Segment") == [f for f, _ in ft._Segment._fields_]
+    assert "TA = %d;" % ft._TILE_TOKENS in src
+
+
+def test_bf16_backward_refuses_a_narrow_mlp_before_any_launch(weights):
+    """dt4 is kept in float in the MLP hidden's buffer of stage A."""
+    x, wqk2, m2, ws, dy = _chain_inputs(weights[1], 1, (4, 4), seed=7)
+    ws = list(ws)
+    ws[11], ws[12], ws[13] = ws[11][:, :512], ws[12][:512], ws[13][:512]
+    before = dict(ft.token_chain_train_backward.launches)
+    with pytest.raises(ValueError, match="mlp_hidden"):
+        ft._BackwardPlan(x.bfloat16(), wqk2, m2, ws, dy, 4)
+    assert ft.token_chain_train_backward.launches == before

@@ -32,6 +32,7 @@ from cavp_tpu_torch.engine.convert import state_dict_from_jax
 from cavp_tpu_torch.engine.runner import build_model
 from cavp_tpu_torch.models.resnet import ResNet
 from cavp_tpu_torch.ops.kernels import layer1 as l1
+from torch_port_common import release_after_module  # noqa: F401 (autouse)
 from torch_ref import randomize_bn_stats
 
 TOL = dict(rtol=1e-5, atol=1e-5)

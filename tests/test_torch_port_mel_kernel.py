@@ -23,6 +23,7 @@ from cavp_tpu.ops.pallas import mel_kernel as jax_mel_kernel
 from cavp_tpu_torch.audio.mel import preprocess_audio
 from cavp_tpu_torch.engine import loops
 from cavp_tpu_torch.ops.kernels.mel import fused_log_mel, fused_log_mel_reference
+from torch_port_common import release_after_module  # noqa: F401 (autouse)
 
 ATOL = 2e-6
 

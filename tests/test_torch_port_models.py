@@ -21,7 +21,7 @@ from cavp_tpu_torch.engine.convert import state_dict_from_jax
 from cavp_tpu_torch.engine.runner import build_model
 from cavp_tpu_torch.models.layers import BatchNorm2d, Conv2d, LayerNorm
 from cavp_tpu_torch.models.resnet import RESNET_LAYERS, stage_specs
-from torch_port_common import model_pair
+from torch_port_common import model_pair, release_after_module  # noqa: F401 (autouse)
 from torch_ref import TorchCAVP
 
 TOL = dict(rtol=2e-4, atol=2e-5)

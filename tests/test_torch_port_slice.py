@@ -32,7 +32,7 @@ from cavp_tpu_torch.data.synthetic import synthetic_eval_batch
 from cavp_tpu_torch.engine import loops
 from cavp_tpu_torch.engine.predictor import Predictor
 from cavp_tpu_torch.metrics import fg_detect, miou
-from torch_port_common import model_pair
+from torch_port_common import model_pair, release_after_module  # noqa: F401 (autouse)
 
 LOGIT_TOL = dict(rtol=1e-3, atol=1e-3)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,7 +70,7 @@ def test_metric_counters_match_jax():
         (jax_miou.miou_init(C),) * 2, jnp.asarray(pred), jnp.asarray(target),
         (jnp.asarray(valid), jnp.asarray(ms)))
     pm = miou.miou_update_weighted(
-        (miou.miou_init(C),) * 2, torch.from_numpy(pred), torch.from_numpy(target),
+        (miou.miou_init(C, device="cpu"),) * 2, torch.from_numpy(pred), torch.from_numpy(target),
         (torch.from_numpy(valid), torch.from_numpy(ms)))
     for j, p in zip(jm, pm):
         for name in ("inter", "union", "correct", "labeled"):
@@ -83,7 +83,7 @@ def test_metric_counters_match_jax():
         (jax_fg.fg_init(C),) * 2, jnp.asarray(pred), jnp.asarray(target),
         (jnp.asarray(valid), jnp.asarray(ms)))
     pf = fg_detect.fg_update_weighted(
-        (fg_detect.fg_init(C),) * 2, torch.from_numpy(pred), torch.from_numpy(target),
+        (fg_detect.fg_init(C, device="cpu"),) * 2, torch.from_numpy(pred), torch.from_numpy(target),
         (torch.from_numpy(valid), torch.from_numpy(ms)))
     for j, p in zip(jf, pf):
         np.testing.assert_array_equal(p.numpy(), np.asarray(j))
@@ -92,7 +92,7 @@ def test_metric_counters_match_jax():
 
 
 def test_fg_result_nan_when_no_class_valid():
-    for got, ref in zip(fg_detect.fg_result(fg_detect.fg_init(4)),
+    for got, ref in zip(fg_detect.fg_result(fg_detect.fg_init(4, device="cpu")),
                         jax_fg.fg_result(jax_fg.fg_init(4))):
         assert np.isnan(float(got)) and np.isnan(float(ref))
 
@@ -398,6 +398,8 @@ def test_entry_points_default_to_the_cuda_device_and_never_to_the_cpu():
         "build_model": lambda: build_model(cfg),
         "Predictor": lambda: Predictor(cfg),
         "eval_metrics_init": lambda: loops.eval_metrics_init(5),
+        "miou_init": lambda: miou.miou_init(5),
+        "fg_init": lambda: fg_detect.fg_init(5),
         "init_bank": lambda: init_bank(5, 2, 8),
         "create_train_state": lambda: create_train_state(model, optimizers, cfg),
         "init_state": lambda: init_state(cfg),
@@ -409,3 +411,5 @@ def test_entry_points_default_to_the_cuda_device_and_never_to_the_cpu():
     state = create_train_state(model, optimizers, cfg, "cpu")
     assert state.step == 0 and state.sound_bank.shape == (5, 2, cfg.audio_samples)
     assert state.sound_bank.device.type == "cpu"
+    assert miou.miou_init(5, device="cpu").inter.device.type == "cpu"
+    assert fg_detect.fg_init(5, device="cpu").device.type == "cpu"

@@ -36,7 +36,7 @@ from cavp_tpu_torch.losses import corocl_loss, cross_entropy
 from cavp_tpu_torch.models import soundbank
 from cavp_tpu_torch.models.layers import BatchNorm2d
 from cavp_tpu_torch.ops.interp import interpolate_nearest
-from torch_port_common import model_pair
+from torch_port_common import model_pair, release_after_module  # noqa: F401 (autouse)
 
 
 # ---------------------------------------------------------------------------

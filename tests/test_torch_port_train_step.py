@@ -78,7 +78,14 @@ from cavp_tpu_torch.engine.convert import (
 from cavp_tpu_torch.engine.optim import label_params, make_optimizer
 from cavp_tpu_torch.engine.runner import init_state
 from cavp_tpu_torch.engine.state import create_train_state
-from torch_port_common import configs, model_pair, once_per_run, release_memory
+from torch_port_common import (  # noqa: F401 (release_after_module is autouse)
+    configs,
+    model_pair,
+    once_per_run,
+    release_after_module,
+    release_memory,
+    start_early,
+)
 
 SPE = 4          # steps per epoch of the schedule
 EPOCHS = (0, 1, 1)
@@ -216,21 +223,55 @@ def _report():
 
 @pytest.fixture(scope="module")
 def reports(tmp_path_factory):
-    """The float32 report and the float64 one, made once per run and one
-    after the other: each takes 7-9 GB while it is made, beside five other
-    workers and the suite's other float64 subprocesses. (Made side by side
+    """The float32 report and the float64 one, made once per run, one after
+    the other, each in a subprocess: each takes 5-9 GB while it is made.
+    Under xdist they are started in the background when this module is
+    collected (``torch_port_common.start_early`` below), so that they are
+    done before the JAX package's float64 drivers run. (Made side by side
     they saved no time in the whole suite and cost it more memory.)"""
     def both():
-        runs = _report()
-        release_memory()
-        return dict(runs=runs, fp64=_fp64_report())
+        path = tmp_path_factory.mktemp("train_step_reports") / "reports.pt"
+        write_reports(path)
+        return torch.load(path, weights_only=False)
 
-    return once_per_run(tmp_path_factory, "train_step_reports", both)
+    return once_per_run("train_step_reports", both)
+
+
+def write_reports(path):
+    """Both reports, each made in a subprocess, saved to ``path``: what the
+    background job started below runs."""
+    f32 = f"{path}.f32"
+    runs = _f32_report(f32)
+    os.unlink(f32)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(dict(runs=runs, fp64=_fp64_report()), tmp)
+    os.replace(tmp, path)
+
+
+def _f32_report(path):
+    """:func:`_report` in a fresh interpreter, with this suite's JAX
+    settings (``conftest``), saved to ``path`` and loaded here: the heap it
+    grows goes with the process."""
+    tests = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import conftest, torch; "
+            "import test_torch_port_train_step as t; torch.save(t._report(), sys.argv[2])")
+    out = subprocess.run([sys.executable, "-c", code, tests, str(path)],
+                         cwd=os.path.dirname(tests), capture_output=True, text=True,
+                         timeout=1200)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return torch.load(path, weights_only=False)
 
 
 @pytest.fixture(scope="module")
 def runs(reports):
     return reports["runs"]
+
+
+start_early("train_step_reports", (
+    sys.executable, "-c",
+    "import sys; sys.path.insert(0, sys.argv[1]); import conftest; "
+    "import test_torch_port_train_step as t; t.write_reports(sys.argv[2])",
+    os.path.dirname(os.path.abspath(__file__))))
 
 
 def _fp64_report():

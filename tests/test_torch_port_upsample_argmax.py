@@ -35,6 +35,7 @@ from cavp_tpu_torch.ops.kernels.upsample_argmax import (
     upsample_argmax,
     upsample_argmax_reference,
 )
+from torch_port_common import release_after_module  # noqa: F401 (autouse)
 
 
 def _logits(seed, shape, ties=True):
