@@ -19,38 +19,35 @@
 // token IO in bf16, so the chain is compute-bound, and only the tensor
 // cores give the rate it needs. The TPU kernel keeps all ~1.8 MB of bf16
 // weights resident in VMEM; that does not fit in the 227 KB of shared
-// memory a block can have, so both kernels here keep only a tile of tokens
-// and its intermediates on chip and stream the weights from global memory,
-// where they stay resident in L2. One block runs one tile of one image;
-// the grid is (tiles, B) and the ragged last tile is masked here, with no
-// host-side padding.
+// memory a block can have, so a block keeps a tile of tokens and its
+// intermediates on chip and streams the weights, which stay in L2.
 //
-// - bf16 (the serving and eval path), `tc::fusion_kernel`: tiles of 32
-//   tokens; every product runs on the tensor cores as 16x16x16 WMMA tiles
-//   with float accumulators. The tile's intermediates live in shared memory
-//   as bf16 (exact: they are rounded to bf16 at those points anyway), so a
-//   block needs ~70 KB; at 128 registers a thread, two blocks run on an
-//   SM. Each warp owns output column tiles, loads their 16x16 weight tiles
-//   straight from global memory (L2) and uses each for both row tiles;
-//   the 4C-wide MLP hidden is processed in chunks of 320 columns, with the
-//   second product's accumulators held in registers across the chunks.
-//   Each accumulator tile goes through a per-warp float scratch for the
-//   bias, rounding, GELU and residual epilogue.
+// - bf16 (the serving and eval path): the token chain of
+//   fusion_chain_sm90.cuh, shared with the train kernel's forward. Tiles of
+//   128 tokens on a persistent grid; each weight slab is staged once per
+//   tile into a 3-slot shared-memory ring by a producer warp (cp.async,
+//   mbarriers) and read by two consumer warpgroups; the products are wgmma
+//   with register accumulators, the epilogues and LayerNorm statistics run
+//   on the accumulator fragments, and the MLP's hidden chunk goes from one
+//   product to the next in registers. That header's note gives the design
+//   and what bounds it. It takes C = 304 or 112, hidden 256, mlp_hidden a
+//   multiple of 64 and 4 heads.
 // - float32, `simt::fusion_kernel`: the tensor cores have no full-float
 //   mode (TF32 keeps ~3 digits), so this path runs on the CUDA cores:
 //   tiles of 16 tokens, each thread owns one output column and keeps the
 //   tile's 16 sums in registers, reading token rows from shared memory as
-//   float4 broadcasts. It serves float32 configurations and parity checks.
+//   float4 broadcasts; a grid of (tiles, B), the ragged last tile masked
+//   here. It serves float32 configurations and parity checks.
 //
-// Each LayerNorm is a per-token warp reduction over the C channels.
+// In the float32 kernel each LayerNorm is a per-token warp reduction over
+// the C channels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include "fusion_chain_sm90.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 struct Weights {
   const void *w1, *b1, *w2f, *b2f, *bp, *wm1, *bm1, *wm2, *bm2;
@@ -69,199 +66,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float rnd(float v) { return bf(__float2bfloat16_rn(v)); }
-
 enum Epilogue { kBias, kBiasGelu, kBiasResidual };
-
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores
-// ---------------------------------------------------------------------------
-namespace tc {
-
-using namespace nvcuda;
-
-constexpr int kTokens = 32;                 // tokens per block
-constexpr int kRowTiles = kTokens / 16;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxC = 320;                  // C <= 320: at most 20 column tiles
-constexpr int kUnits = (kMaxC / 16 + kWarps - 1) / kWarps;  // column tiles per warp
-constexpr int kChunk = 320;                 // hidden columns per pass
-constexpr int kPad = 8;                     // row padding (bf16) against bank conflicts
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// acc[r] += in[16r : 16r+16, 0:K] @ W[0:K, n0 : n0+16]; in: shared, row
-// stride in_ld; W: global, row stride w_ld. One weight tile feeds both
-// row tiles.
-__device__ __forceinline__ void mma_cols(FragC (&acc)[kRowTiles], const bf16* in,
-                                         int in_ld, const bf16* W, int w_ld, int K,
-                                         int n0) {
-  FragA a;
-  FragB b;
-  for (int k = 0; k < K; k += 16) {
-    wmma::load_matrix_sync(b, W + (size_t)k * w_ld + n0, w_ld);
-#pragma unroll
-    for (int r = 0; r < kRowTiles; ++r) {
-      wmma::load_matrix_sync(a, in + r * 16 * in_ld + k, in_ld);
-      wmma::mma_sync(acc[r], a, b, acc[r]);
-    }
-  }
-}
-
-// out[:, n0:n0+16] = epilogue(acc) through the warp's float scratch;
-// res may alias out (each element is read and written by one lane).
-template <int EPI>
-__device__ __forceinline__ void store_cols(const FragC (&acc)[kRowTiles], float* scratch,
-                                           const bf16* bias, int n0, bf16* out,
-                                           int out_ld) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < kRowTiles; ++r) {
-    wmma::store_matrix_sync(scratch, acc[r], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int row = r * 16 + e / 16, col = n0 + e % 16;
-      bf16* o = out + row * out_ld + col;
-      float v = rnd(rnd(scratch[e]) + bf(bias[col]));
-      if (EPI == kBiasGelu) v = gelu(v);
-      if (EPI == kBiasResidual) v = bf(*o) + v;
-      *o = __float2bfloat16_rn(v);
-    }
-    __syncwarp();
-  }
-}
-
-// out[:, 0:n_out] = epilogue(in[:, 0:K] @ W[0:K, 0:n_out] + bias)
-template <int EPI>
-__device__ void gemm(const bf16* in, int in_ld, int K, const bf16* W, int w_ld,
-                     const bf16* bias, int n_out, bf16* out, int out_ld, float* scratch) {
-  for (int ct = threadIdx.x >> 5; ct < n_out / 16; ct += kWarps) {
-    FragC acc[kRowTiles];
-#pragma unroll
-    for (int r = 0; r < kRowTiles; ++r) wmma::fill_fragment(acc[r], 0.f);
-    mma_cols(acc, in, in_ld, W, w_ld, K, ct * 16);
-    store_cols<EPI>(acc, scratch, bias, ct * 16, out, out_ld);
-  }
-}
-
-// y[t, :] = LN(x[t, :]) * s + b, one warp per token row; y may alias x.
-__device__ void layernorm(const bf16* x, const bf16* s, const bf16* b, int C, int ld,
-                          bf16* y) {
-  const int lane = threadIdx.x & 31;
-  for (int t = threadIdx.x >> 5; t < kTokens; t += kWarps) {
-    const bf16* row = x + t * ld;
-    float sum = 0.f;
-    for (int c = lane; c < C; c += 32) sum += bf(row[c]);
-    const float mean = warp_sum(sum) / C;
-    float sq = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = bf(row[c]) - mean;
-      sq += d * d;
-    }
-    const float r = rsqrtf(warp_sum(sq) / C + 1e-5f);
-    for (int c = lane; c < C; c += 32)
-      y[t * ld + c] = __float2bfloat16_rn((bf(row[c]) - mean) * r * bf(s[c]) + bf(b[c]));
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-fusion_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wqk,
-              const bf16* __restrict__ m, Weights w, bf16* __restrict__ out, int N,
-              int C, int hidden, int mlp_hidden, int heads, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = C + kPad, hld = kChunk + kPad;
-  bf16* X = reinterpret_cast<bf16*>(smem);  // x, then LN2's output
-  bf16* A = X + kTokens * ld;               // p -> a -> t4 -> t5 -> out
-  bf16* H = A + kTokens * ld;               // hidden chunk
-  float* scratch = reinterpret_cast<float*>(H + kTokens * hld) + (threadIdx.x >> 5) * 256;
-  float* G = reinterpret_cast<float*>(H + kTokens * hld) + kWarps * 256;  // [kTokens, heads]
-
-  const int b = blockIdx.y, tile0 = blockIdx.x * kTokens;
-  const int n_valid = min(kTokens, N - tile0);
-  const size_t base = ((size_t)b * N + tile0) * C;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bf16 zero = __float2bfloat16_rn(0.f);
-
-  for (int i = tid; i < kTokens * C; i += kThreads) {
-    const int t = i / C, c = i % C;
-    X[t * ld + c] = t < n_valid ? x[base + i] : zero;
-  }
-  __syncthreads();
-
-  gemm<kBiasGelu>(X, ld, C, (const bf16*)w.w1, hidden, (const bf16*)w.b1, hidden, H,
-                  hld, scratch);
-  __syncthreads();
-  gemm<kBias>(H, hld, hidden, (const bf16*)w.w2f, C, (const bf16*)w.b2f, C, A, ld,
-              scratch);
-  __syncthreads();
-  layernorm(A, (const bf16*)w.n1s, (const bf16*)w.n1b, C, ld, A);
-  __syncthreads();
-
-  // rank-1 sigmoid gate: one warp per (token, head) dot product
-  const bf16* wqk_b = wqk + (size_t)b * C * heads;
-  for (int o = warp; o < kTokens * heads; o += kWarps) {
-    const int t = o / heads, hh = o % heads;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += bf(A[t * ld + c]) * bf(wqk_b[c * heads + hh]);
-    s = warp_sum(s);
-    if (lane == 0) G[o] = rnd(sigmoid(s * scale));
-  }
-  __syncthreads();
-  const bf16* m_b = m + (size_t)b * heads * C;
-  const bf16* bp = (const bf16*)w.bp;
-  for (int i = tid; i < kTokens * C; i += kThreads) {
-    const int t = i / C, c = i % C;
-    float o = 0.f;
-    for (int hh = 0; hh < heads; ++hh) o = fmaf(G[t * heads + hh], bf(m_b[hh * C + c]), o);
-    o = rnd(rnd(o) + bf(bp[c]));
-    A[t * ld + c] = __float2bfloat16_rn(bf(A[t * ld + c]) + o);  // t4
-  }
-  __syncthreads();
-  layernorm(A, (const bf16*)w.n2s, (const bf16*)w.n2b, C, ld, X);
-  __syncthreads();
-
-  // MLP: fc1 + GELU one hidden chunk at a time; fc2's sums stay in registers
-  FragC acc[kUnits][kRowTiles];
-#pragma unroll
-  for (int u = 0; u < kUnits; ++u)
-#pragma unroll
-    for (int r = 0; r < kRowTiles; ++r) wmma::fill_fragment(acc[u][r], 0.f);
-  const bf16* wm2 = (const bf16*)w.wm2;
-  for (int c0 = 0; c0 < mlp_hidden; c0 += kChunk) {
-    const int cw = min(kChunk, mlp_hidden - c0);
-    gemm<kBiasGelu>(X, ld, C, (const bf16*)w.wm1 + c0, mlp_hidden,
-                    (const bf16*)w.bm1 + c0, cw, H, hld, scratch);
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kUnits; ++u) {
-      const int ct = warp + u * kWarps;
-      if (ct < C / 16) mma_cols(acc[u], H, hld, wm2 + (size_t)c0 * C, C, cw, ct * 16);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int u = 0; u < kUnits; ++u) {
-    const int ct = warp + u * kWarps;
-    if (ct < C / 16)
-      store_cols<kBiasResidual>(acc[u], scratch, (const bf16*)w.bm2, ct * 16, A, ld);
-  }
-  __syncthreads();
-  layernorm(A, (const bf16*)w.n3s, (const bf16*)w.n3b, C, ld, A);
-  __syncthreads();
-
-  for (int i = tid; i < n_valid * C; i += kThreads) out[base + i] = A[(i / C) * ld + i % C];
-}
-
-size_t smem_bytes(int C, int heads) {
-  return sizeof(bf16) * (2 * kTokens * (C + kPad) + kTokens * (kChunk + kPad)) +
-         sizeof(float) * (kWarps * 256 + kTokens * heads);
-}
-
-}  // namespace tc
 
 // ---------------------------------------------------------------------------
 // float32 on the CUDA cores
@@ -421,8 +226,9 @@ extern "C" {
 // array of that type: x/out [B, N, C], wqk [B, C, heads], m [B, heads, C],
 // w1 [C, hidden], w2f [hidden, C], wm1 [C, mlp_hidden], wm2 [mlp_hidden, C]
 // and the vectors. float32 needs C, hidden and mlp_hidden to be multiples
-// of 4; bf16 needs multiples of 16 and C, hidden <= 320. Returns the
-// launch's cudaError_t (0 on success).
+// of 4; bf16 needs C = 304 or 112, hidden = 256, mlp_hidden a multiple of
+// 64 and heads = 4 (chain::supported). Returns the launch's cudaError_t (0
+// on success).
 int cavp_fused_visual_fusion(int dtype, const void* x, const void* wqk, const void* m,
                              const void* w1, const void* b1, const void* w2f,
                              const void* b2f, const void* bp, const void* wm1,
@@ -438,13 +244,27 @@ int cavp_fused_visual_fusion(int dtype, const void* x, const void* wqk, const vo
                   simt::smem_bytes(C, hidden, mlp_hidden, heads), x, wqk, m, w, out, B, N,
                   C, hidden, mlp_hidden, heads, scale, s);
   if (dtype == 1) {
-    if (C % 16 || hidden % 16 || mlp_hidden % 16 || C > tc::kMaxC || hidden > tc::kChunk)
-      return (int)cudaErrorInvalidValue;
-    return launch(tc::fusion_kernel, tc::kTokens, tc::kThreads, tc::smem_bytes(C, heads), x,
-                  wqk, m, w, out, B, N, C, hidden, mlp_hidden, heads, scale, s);
+    if (!chain::supported(C, hidden, mlp_hidden, heads)) return (int)cudaErrorInvalidValue;
+    typedef chain::bf16 T;
+    const chain::Args a{(const T*)x,   (const T*)wqk, (const T*)m,   (const T*)w1,  (const T*)b1,
+                        (const T*)w2f, (const T*)b2f, nullptr,       nullptr,       (const T*)n1s,
+                        (const T*)n1b, (const T*)bp,  (const T*)n2s, (const T*)n2b, (const T*)wm1,
+                        (const T*)bm1, (const T*)wm2, (const T*)bm2, (const T*)n3s, (const T*)n3b,
+                        (T*)out,       B,             N,             mlp_hidden,    scale};
+    return chain::launch<false>(a, C, s);
   }
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef CHAIN_STAMPS
+// The bf16 chain's stage counters (3 x chain::kStamps), read and zeroed.
+int cavp_chain_stamps(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, chain::g_stamps, sizeof(chain::g_stamps));
+  if (err != cudaSuccess) return (int)err;
+  static const unsigned long long zero[3 * chain::kStamps] = {};
+  return (int)cudaMemcpyToSymbol(chain::g_stamps, zero, sizeof(zero));
+}
+#endif
 
 const char* cavp_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -26,13 +26,23 @@
 // ~10 MFLOP against 0.6 to 2.4 KB of token IO, so both are bound by
 // operations, and only the tensor cores give the rate they need.
 //
-// The forward, and the float32 backward. A block holds one tile of tokens
-// and its intermediates in shared memory and streams the weights from
-// global memory (L2), as the eval kernel does. The products (x @ W,
-// dy @ W^T, x^T @ dy) are block-wide routines with a per-element epilogue,
-// `Mm::nn`, `Mm::nt` and `Mm::outer`: bf16 (forward only) in 16x16x16 WMMA
-// tiles with float accumulators, the epilogue through a per-warp float
-// scratch; float32 on the CUDA cores (one output column per thread, float4
+// The bf16 forward (the train step's path) is the token chain of
+// fusion_chain_sm90.cuh, shared with the eval kernel: tiles of 128 tokens
+// on a persistent grid, each weight slab staged once per tile into a
+// 3-slot shared-memory ring by a producer warp (cp.async, mbarriers) and
+// read by two consumer warpgroups, wgmma products with register
+// accumulators, epilogues and LayerNorm statistics on the accumulator
+// fragments. The shared prefix (x -> t1 -> t2 -> t3 -> a) runs once per
+// tile; the two gated halves then run one after the other on the same
+// tile, each re-reading a from shared memory, and the ring re-streams the
+// MLP weights for the second half (1.5 MB do not fit). That header's note
+// gives the design and what bounds it.
+//
+// The float32 forward and the float32 backward. A block holds one tile of
+// tokens and its intermediates in shared memory and streams the weights
+// from global memory (L2). The products (x @ W, dy @ W^T, x^T @ dy) are
+// block-wide routines with a per-element epilogue, `Mm::nn`, `Mm::nt` and
+// `Mm::outer`, on the CUDA cores (one output column per thread, float4
 // rows), since the tensor cores have no full-float mode. The 4C-wide MLP
 // hidden is walked in chunks. The float32 backward (tiles of 16 tokens)
 // serves float32 configurations and the parity checks: its grid is (blocks
@@ -57,7 +67,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include "fusion_chain_sm90.cuh"
 
 namespace {
 
@@ -172,50 +183,6 @@ template <int TOK> struct Mm<float, TOK> {
 #pragma unroll
       for (int t = 0; t < TOK; ++t) s = fmaf(A[t * lda + k], D[t * ldd + n], s);
       G[(size_t)k * ldg + n] += s;
-    }
-  }
-};
-
-template <int TOK> struct Mm<bf16, TOK> {
-  static constexpr int RT = TOK / 16;  // row tiles
-  using FragA = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, bf16,
-                                       nvcuda::wmma::row_major>;
-  using FragB = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
-                                       nvcuda::wmma::row_major>;
-  using FragC = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
-
-  template <typename Epi>
-  static __device__ __forceinline__ void finish(const FragC (&acc)[RT], float* scratch,
-                                                int j0, Epi epi) {
-    const int lane = threadIdx.x & 31;
-    float* mine = scratch + (threadIdx.x >> 5) * 256;
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      nvcuda::wmma::store_matrix_sync(mine, acc[r], 16, nvcuda::wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) epi(r * 16 + e / 16, j0 + e % 16, mine[e]);
-      __syncwarp();
-    }
-  }
-
-  template <typename Epi>
-  static __device__ void nn(const bf16* A, int lda, int K, const bf16* W, int ldw, int N,
-                            float* scratch, Epi epi) {
-    for (int ct = threadIdx.x >> 5; ct < N / 16; ct += kWarps) {
-      FragC acc[RT];
-#pragma unroll
-      for (int r = 0; r < RT; ++r) nvcuda::wmma::fill_fragment(acc[r], 0.f);
-      FragA a;
-      FragB b;
-      for (int k = 0; k < K; k += 16) {
-        nvcuda::wmma::load_matrix_sync(b, W + (size_t)k * ldw + ct * 16, ldw);
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          nvcuda::wmma::load_matrix_sync(a, A + r * 16 * lda + k, lda);
-          nvcuda::wmma::mma_sync(acc[r], a, b, acc[r]);
-        }
-      }
-      finish(acc, scratch, ct * 16, epi);
     }
   }
 };
@@ -1451,8 +1418,10 @@ extern "C" {
 // m2 [B, 2, heads, C], y [2, B, N, C]; ws: a host array of the 17 weight
 // pointers in the order w1 [C, hidden], b1, w2 [hidden, C], b2, wpe [C, C],
 // bpe, g1, c1, bp, g2, c2, wm1 [C, mlp_hidden], bm1, wm2 [mlp_hidden, C],
-// bm2, g3, c3. float32 needs C, hidden and mlp_hidden to be multiples of 4,
-// bf16 multiples of 16. Returns the launch's cudaError_t (0 on success).
+// bm2, g3, c3. float32 needs C, hidden and mlp_hidden to be multiples of 4;
+// bf16 needs C = 304 or 112, hidden = 256, mlp_hidden a multiple of 64 and
+// heads = 4 (chain::supported). Returns the launch's cudaError_t (0 on
+// success).
 int cavp_fusion_train_fwd(int dtype, const void* x, const void* wqk2, const void* m2,
                           const void* const* ws, void* y, int B, int N, int C, int hidden,
                           int mlp_hidden, int heads, float scale, void* stream) {
@@ -1461,10 +1430,27 @@ int cavp_fusion_train_fwd(int dtype, const void* x, const void* wqk2, const void
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && !(C % 4 || hidden % 4 || mlp_hidden % 4))
     return launch_fwd<float, 16>(x, wqk2, m2, w, y, d, s);
-  if (dtype == 1 && !(C % 16 || hidden % 16 || mlp_hidden % 16))
-    return launch_fwd<bf16, 32>(x, wqk2, m2, w, y, d, s);
+  if (dtype == 1 && chain::supported(C, hidden, mlp_hidden, heads)) {
+    typedef const bf16* P;
+    const chain::Args a{(P)x,     (P)wqk2,  (P)m2,    (P)w.w1,  (P)w.b1,  (P)w.w2,
+                        (P)w.b2,  (P)w.wpe, (P)w.bpe, (P)w.g1,  (P)w.c1,  (P)w.bp,
+                        (P)w.g2,  (P)w.c2,  (P)w.wm1, (P)w.bm1, (P)w.wm2, (P)w.bm2,
+                        (P)w.g3,  (P)w.c3,  (bf16*)y, B,        N,        mlp_hidden,
+                        scale};
+    return chain::launch<true>(a, C, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef CHAIN_STAMPS
+// The bf16 forward's stage counters (3 x chain::kStamps), read and zeroed.
+int cavp_chain_stamps_train(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, chain::g_stamps, sizeof(chain::g_stamps));
+  if (err != cudaSuccess) return (int)err;
+  static const unsigned long long zero[3 * chain::kStamps] = {};
+  return (int)cudaMemcpyToSymbol(chain::g_stamps, zero, sizeof(zero));
+}
+#endif
 
 // The float32 backward in one launch, tiles of 16 tokens: dy [2, B, N, C]
 // and dx [B, N, C] float. The partial sets are float and zeroed by the

@@ -26,6 +26,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "cavp_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the driver API, for the TMA tensor maps of csrc/fusion_chain_sm90.cuh
+LINK_FLAGS = ("-lcuda",)
 
 
 def find_nvcc() -> str:
@@ -48,7 +50,7 @@ def _sources():
 
 def library_path() -> Path:
     cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for f in cu + cuh:
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -78,7 +80,7 @@ def build_library() -> Tuple[Path, str]:
         log = "".join(f"[{f.name}]\n{out}" for f, out in zip(cu, logs))
         if any(p.returncode != 0 for p in procs):
             raise RuntimeError(f"nvcc failed:\n{log}")
-        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects), *LINK_FLAGS],
                               capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n"

@@ -19,7 +19,11 @@ The backward recomputes the chain from the forward's inputs and emits
 ``dx``, the per-image ``dwqk``/``dm`` and all 17 weight, bias and
 LayerNorm-affine gradients accumulated in float32, so none of autograd's
 intermediates of the fusion stage (the float [2B, N, 4C] GELU input above
-all) reaches device memory. In bf16 it is three launches: stage A
+all) reaches device memory. The bf16 forward is the token chain of
+``csrc/fusion_chain_sm90.cuh``, shared with the eval kernel (tiles of
+:data:`~cavp_tpu_torch.ops.kernels.fusion.TILE_TOKENS` tokens, the shapes of
+:func:`~cavp_tpu_torch.ops.kernels.fusion.chain_supported`). The bf16
+backward is three launches: stage A
 recomputes the chain per tile of 32 tokens and writes dx, the bias and
 LayerNorm-affine gradients' per-block partial sets and the bf16 operands
 of the weight-gradient products; stage B contracts those operands over
@@ -54,6 +58,8 @@ import torch
 import torch.nn as nn
 
 from cavp_tpu_torch.models.attn import rank1_factors
+from cavp_tpu_torch.ops.kernels.fusion import (
+    CHAIN_HEADS, CHAIN_HIDDEN, CHAIN_WIDTHS, _state, chain_supported)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 WEIGHT_NAMES = ("w1", "b1", "w2", "b2", "wpe", "bpe", "g1", "c1", "bp",
@@ -337,7 +343,7 @@ def _validate_cuda(x, named, hidden, mlp_hidden):
     if x.shape[0] > 65535:
         raise ValueError(f"batch {x.shape[0]} exceeds the kernel grid's 65535")
     # float32 runs on the CUDA cores (float4 rows); bf16 on the tensor cores
-    # in 16x16 tiles
+    # in steps of 16 (the forward also needs chain_supported's shapes)
     step = 16 if x.dtype == torch.bfloat16 else 4
     C = x.shape[-1]
     if C % step or hidden % step or mlp_hidden % step:
@@ -364,6 +370,10 @@ def token_chain_train(x: torch.Tensor, wqk2: torch.Tensor, m2: torch.Tensor,
         return token_chain_train_reference(x, wqk2, m2, ws, num_heads)
     _validate_cuda(x, [("x", x), ("wqk2", wqk2), ("m2", m2), *zip(WEIGHT_NAMES, ws)],
                    hidden, mlp_hidden)
+    if x.dtype == torch.bfloat16 and not chain_supported(C, hidden, mlp_hidden, num_heads):
+        raise ValueError(f"the bf16 forward takes C in {CHAIN_WIDTHS}, hidden {CHAIN_HIDDEN}, "
+                         f"mlp_hidden a multiple of C and {CHAIN_HEADS} heads, got "
+                         f"{C}, {hidden}, {mlp_hidden}, {num_heads}")
     lib = _library()
     y = torch.empty((2 * B, N, C), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -589,12 +599,6 @@ class _TokenChain(torch.autograd.Function):
             x, wqk2, m2, ws, dy, ctx.num_heads)
         return (None, dx, dwqk2.to(wqk2.dtype), dm2.to(m2.dtype),
                 *(g.to(w.dtype) for g, w in zip(dws, ws)))
-
-
-def _state(model_or_params) -> Mapping[str, torch.Tensor]:
-    if isinstance(model_or_params, nn.Module):
-        return dict(model_or_params.named_parameters())
-    return model_or_params
 
 
 def train_operands(model_or_params: Union[nn.Module, Mapping[str, torch.Tensor]],

@@ -10,10 +10,12 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
 2. builds the CUDA kernels from ``cavp_tpu_torch/csrc`` and prints the
    build time and ptxas's register report;
 3. holds the fusion kernel against its plain PyTorch version on the card
-   (float32 with TF32 off; bf16 at the eval shape [120, 3136, 304] and the
-   serving bucket's [8, 3136, 304]; token counts that are not a multiple
-   of the kernel's tile) and times both at [120, 3136, 304] bf16, beside
-   the module path (``CAVP.forward_fusion``) the plain eval step runs;
+   (float32 with TF32 off; bf16 at the eval shape [120, 3136, 304], the
+   serving bucket's [8, 3136, 304], B = 1, and token counts that are not a
+   multiple of the kernel's 64-token tile; two bf16 launches must be
+   bit-equal) and times both at [120, 3136, 304] bf16, the wrapper and the
+   launch alone, beside the module path (``CAVP.forward_fusion``) the plain
+   eval step runs;
 4. serves requests of 1, 5, 8 and 11 images through ``Predictor`` (avss,
    224x224, bf16, fusion kernel on, batch bucket 8), checks the masks,
    that the kernel ran, and that they agree with the same Predictor on
@@ -23,8 +25,9 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
 6. holds the train fusion kernels (forward and backward) against their
    plain PyTorch versions: float32 with TF32 off and bf16 at
    [32, 3136, 304], float32 at a ragged token count (3199) and at C = 112;
-   every one of dx, dwqk, dm and the 17 weight gradients is compared, two
-   backward launches must give bit-equal gradients; the bf16 backward's
+   the bf16 forward also at [8, 3136, 304] and B = 1, two launches of it
+   bit-equal; every one of dx, dwqk, dm and the 17 weight gradients is
+   compared, two backward launches must give bit-equal gradients; the bf16 backward's
    three launches are also held apart (stage A's operands against the plain
    backward's, stage B + the reduction against float32 products of the same
    operands) and timed one by one, and the kernels are timed beside their
@@ -61,7 +64,9 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
 The weights are random, drawn from a seed, and made non-degenerate (see
 ``random_weights``) so the comparisons are not empty. The numbers printed
 are measurements of the port on this card, not a benchmark. With
-``--profile`` it also prints a ``torch.profiler`` table of one train step.
+``--profile`` it also prints a ``torch.profiler`` table of one train step,
+and of one eval step at batch 120 with every kernel flag on, with that
+step's device time split by kernel group and the device's idle share.
 Every phase fails loudly; the last line is ``{"ok": true, "device":
 {...}}`` only when all of them passed.
 Without a CUDA device, or without the package beside it, it exits 1.
@@ -225,7 +230,8 @@ def kernel_phase(model, device) -> dict:
 
     from cavp_tpu_torch.models.cavp import tokens_to_map
     from cavp_tpu_torch.ops.kernels.fusion import (
-        fused_visual_fusion, fused_visual_fusion_reference)
+        TILE_TOKENS, _launch as fusion_launch, fused_visual_fusion,
+        fused_visual_fusion_reference, fusion_operands, tile_walk)
 
     g = torch.Generator().manual_seed(SEED + 1)
     C = BENCH_SHAPE[2]
@@ -238,10 +244,12 @@ def kernel_phase(model, device) -> dict:
     def compare(b, n, dtype):
         x, a = inputs(b, n, dtype)
         got = fused_visual_fusion(model, x, a)
+        again = fused_visual_fusion(model, x, a)
         ref = fused_visual_fusion_reference(model, x, a)
         torch.cuda.synchronize()
         require(got.shape == ref.shape and got.dtype == ref.dtype == dtype,
                 f"kernel output {got.shape} {got.dtype} vs {ref.shape} {ref.dtype}")
+        require(bool(torch.equal(got, again)), f"two launches differ at [{b},{n},{C}]")
         require(bool(torch.isfinite(got).all()), "non-finite kernel output")
         err = (got.float() - ref.float()).abs()
         return got, ref, float(err.max()), float(err.mean())
@@ -255,13 +263,14 @@ def kernel_phase(model, device) -> dict:
         print(f"[kernel] {name} [{b},{n},{C}]: max_abs_err {mx:.3e} "
               f"mean_abs_err {mean:.3e} (rtol 1e-4, atol 5e-5: ok)")
         results[name] = mx
-    for name, (b, n) in (("bf16_ragged", (3, 7 * 9)), ("bf16_bucket8", (8, BENCH_SHAPE[1])),
-                         ("bf16", BENCH_SHAPE[:2])):
+    for name, (b, n) in (("bf16_ragged", (3, 7 * 9)), ("bf16_ragged_3199", (3, 3199)),
+                         ("bf16_b1", (1, BENCH_SHAPE[1])),
+                         ("bf16_bucket8", (8, BENCH_SHAPE[1])), ("bf16", BENCH_SHAPE[:2])):
         _, _, mx, mean = compare(b, n, torch.bfloat16)
         ok = mx <= BF16_MAX_ABS and mean <= BF16_MEAN_ABS
         print(f"[kernel] {name} [{b},{n},{C}]: max_abs_err {mx:.3e} "
               f"mean_abs_err {mean:.3e} (max {BF16_MAX_ABS}, mean "
-              f"{BF16_MEAN_ABS}: {'ok' if ok else 'FAIL'})")
+              f"{BF16_MEAN_ABS}: {'ok' if ok else 'FAIL'}; two launches bit-equal)")
         require(ok, f"bf16 kernel disagrees with the plain version ({name})")
         results[name] = mx
 
@@ -272,13 +281,17 @@ def kernel_phase(model, device) -> dict:
     def module_path():  # what the eval step runs with use_pallas_fusion off
         return model.forward_fusion(tokens_to_map(x, side, side), a)
 
+    ops = fusion_operands(model, a, torch.bfloat16)
     arms = {"kernel": lambda: fused_visual_fusion(model, x, a),
             "plain": lambda: fused_visual_fusion_reference(model, x, a),
-            "module": module_path}
+            "module": module_path, "launch": lambda: fusion_launch(x, ops, 4)}
+    launches = fused_visual_fusion.launches
     iters, times = 10, {k: [] for k in arms}
-    for arm in ("plain", "kernel", "module", "module", "kernel", "plain"):
+    for arm in ("plain", "kernel", "launch", "module", "module", "launch", "kernel", "plain"):
         times[arm].append(cuda_ms(arms[arm], iters))
+    fused_visual_fusion.launches = launches
     results["ms"] = statistics.median(times["kernel"])
+    results["launch_ms"] = statistics.median(times["launch"])
     results["plain_ms"] = statistics.median(times["plain"])
     results["module_ms"] = statistics.median(times["module"])
     tokens = BENCH_SHAPE[0] * BENCH_SHAPE[1]
@@ -286,10 +299,14 @@ def kernel_phase(model, device) -> dict:
     flops = tokens * 2 * (C * 256 + 256 * C + 2 * C * 4 + 2 * C * 4 * C)
     results["bound_ms"], results["bound_by"] = bound_ms(flops, 2 * tokens * C * 2)
     fmt = lambda k: " / ".join(f"{t:.3f}" for t in times[k])
+    walk = tile_walk(BENCH_SHAPE[0], BENCH_SHAPE[1],
+                     torch.cuda.get_device_properties(device).multi_processor_count)
     print(f"[kernel] time at {list(BENCH_SHAPE)} bf16, median of {iters} "
-          f"(plain, kernel, module, module, kernel, plain): kernel {fmt('kernel')} ms, "
-          f"plain {fmt('plain')} ms, module path {fmt('module')} ms "
-          f"({tokens / results['ms'] / 1e3:.1f} M tokens/s with the kernel)")
+          f"(plain, kernel, launch, module, module, launch, kernel, plain): wrapper "
+          f"{fmt('kernel')} ms, launch alone {fmt('launch')} ms, plain {fmt('plain')} ms, "
+          f"module path {fmt('module')} ms ({tokens / results['ms'] / 1e3:.1f} M tokens/s with "
+          f"the wrapper; {flops / results['launch_ms'] / 1e9:.1f} TFLOP/s in the launch; "
+          f"{len(walk)} blocks walk {sum(map(len, walk))} tiles of {TILE_TOKENS} tokens)")
     return results
 
 
@@ -385,6 +402,64 @@ def eval_phase(config, model, device, batch: int = EVAL_BATCH, iters: int = 5) -
     return {k: statistics.median(v) for k, v in fps.items()}
 
 
+# kernel-name pieces of each group of the eval step's device time
+KERNEL_GROUPS = (("K1 fusion", ("chain_kernel",)), ("K5 layer1", ("bottleneck_kernel",)),
+                 ("K3 mel", ("log_mel_kernel",)), ("K4 upsample+argmax", ("upsample_argmax",)),
+                 ("convolutions and matrix products",
+                  ("conv", "xmma", "implicit", "cudnn", "fprop", "dgrad", "wgrad", "winograd",
+                   "gemm", "cutlass")),
+                 ("elementwise", ("elementwise", "vectorized")), ("reductions", ("reduce",)))
+
+
+def profile_eval_step(config, model, device) -> None:
+    """``--profile``: one eval step at batch 120 with every kernel flag on
+    under ``torch.profiler``; its device time by kernel group, and the
+    device's idle share against the unprofiled step's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from cavp_tpu_torch.data.synthetic import synthetic_eval_batch
+    from cavp_tpu_torch.engine.loops import eval_metrics_init, make_eval_step
+
+    data = {k: torch.from_numpy(v).to(device)
+            for k, v in synthetic_eval_batch(config, EVAL_BATCH, seed=SEED + 25).items()}
+    step = make_eval_step(model, config.replace(**ALL_FLAGS))
+    metrics = eval_metrics_init(config.num_classes, device)
+    for _ in range(2):
+        metrics = step(metrics, data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        metrics = step(metrics, data)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        metrics = step(metrics, data)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    print(events.table(sort_by="cuda_time_total", row_limit=30, max_name_column_width=70))
+    device_ms = lambda e: (getattr(e, "self_device_time_total", None)
+                           or getattr(e, "self_cuda_time_total", 0)) / 1e3
+    kernels = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy = sum(device_ms(e) for e in kernels)
+    split = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["other"], 0.0)
+    for e in kernels:
+        name = e.key.lower()
+        group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
+        split[group] += device_ms(e)
+    print(f"[profile-eval] one eval step at batch {EVAL_BATCH}, every kernel flag on: "
+          f"{busy:.2f} ms of device time in {sum(e.count for e in kernels)} kernel launches; "
+          f"unprofiled step {wall:.2f} ms, so the device idles {100 * (1 - busy / wall):.1f}%")
+    print("[profile-eval] device time by group: " + "; ".join(
+        f"{g} {ms:.2f} ms ({100 * ms / busy:.1f}%)"
+        for g, ms in sorted(split.items(), key=lambda kv: -kv[1])))
+    other = sorted((e for e in kernels if not any(
+        k in e.key.lower() for _, keys in KERNEL_GROUPS for k in keys)), key=lambda e: -device_ms(e))
+    print("[profile-eval] largest in other: " + "; ".join(
+        f"{e.key[:60]} {device_ms(e):.2f} ms x{e.count}" for e in other[:5]))
+
+
 def plain_split_products(plan, reduce: bool = True) -> dict:
     """Stage B's plain version on a backward plan's own operands: float32
     products over ``SPLIT_TOKENS``-token ranges, summed in split order (or
@@ -429,6 +504,8 @@ def train_kernel_phase(model, small_model, device) -> dict:
     def compare(name, mdl, b, n, dtype):
         x, _, dy, wqk2, m2, ws = operands(mdl, b, n, dtype)
         y = ft.token_chain_train(x, wqk2, m2, ws)
+        require(bool(torch.equal(y, ft.token_chain_train(x, wqk2, m2, ws))),
+                f"{name}: two forward launches differ")
         got = flat(ft.token_chain_train_backward(x, wqk2, m2, ws, dy))
         again = flat(ft.token_chain_train_backward(x, wqk2, m2, ws, dy))
         torch.cuda.synchronize()
@@ -478,6 +555,20 @@ def train_kernel_phase(model, small_model, device) -> dict:
     compare("f32_ragged", model, 3, N + 7 * 9, torch.float32)
     compare("f32_c112", small_model, 3, 7 * 9, torch.float32)
     compare("bf16_ragged", model, 3, N + 7 * 9, torch.bfloat16)
+    for fname, fb in (("bf16_b1", 1), ("bf16_bucket8", 8)):  # the forward alone
+        with torch.no_grad():
+            x, _, _, wqk2, m2, ws = operands(model, fb, N, torch.bfloat16)
+            y = ft.token_chain_train(x, wqk2, m2, ws)
+            again = ft.token_chain_train(x, wqk2, m2, ws)
+            ref = ft.token_chain_train_reference(x, wqk2, m2, ws)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs()
+        ok = (bool(torch.equal(y, again)) and bool(torch.isfinite(y).all())
+              and float(err.max()) <= BF16_MAX_ABS and float(err.mean()) <= BF16_MEAN_ABS)
+        print(f"[train-kernel] {fname} [{fb}, {N}, {C}] forward: max_abs_err "
+              f"{float(err.max()):.3e} mean_abs_err {float(err.mean()):.3e} (max {BF16_MAX_ABS}, "
+              f"mean {BF16_MEAN_ABS}; two launches bit-equal: {'ok' if ok else 'FAIL'})")
+        require(ok, f"{fname}: the bf16 forward kernel disagrees with the plain version")
     compare("bf16_c112", small_model, 3, 7 * 9 + 16, torch.bfloat16)
     results["fwd_err"], results["bwd_err"], _ = compare("bf16", model, B, N, torch.bfloat16)
 
@@ -1105,6 +1196,8 @@ def main() -> int:
     launches = serving_phase(config, state_dict, device)
     # 5. eval step
     fps = eval_phase(config, model, device)
+    if "--profile" in sys.argv[1:]:
+        profile_eval_step(config, model, device)
     # 6. train kernels against plain
     small = build_model(config.replace(visual_backbone=18), device)
     random_weights(small, config, device)
@@ -1173,7 +1266,7 @@ def main() -> int:
          "launches": eval_launches["layer1"], "max_abs_err": lres["bf16"],
          "ms": lres["kernel"], "plain_ms": lres["plain"],
          "bound_ms": lres["bound"][0], "bound_by": lres["bound"][1],
-         "library_ms": lres["library"]}]}))
+         "library_ms": None}]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

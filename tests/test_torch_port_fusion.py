@@ -12,6 +12,9 @@ the Pallas kernel's rational erf is within 1.5e-7 of exact erf, which
 fc2 and the MLP sums amplify to a few e-5.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +29,7 @@ from cavp_tpu_torch.models.cavp import CAVP
 from cavp_tpu_torch.models.layers import Mlp
 from cavp_tpu_torch.ops import _build
 from cavp_tpu_torch.ops.kernels import fusion
+from cavp_tpu_torch.ops.kernels import fusion_train as ft
 from torch_port_common import release_after_module  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=5e-5)
@@ -151,3 +155,151 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.build_library()
     assert not (tmp_path / "build").exists()
     assert _build.library_path().name.startswith("libcavp_kernels_")
+
+
+# ---- the weight-operand cache of fusion_operands ----------------------------
+
+def _slice_from(params):
+    port = FusionSlice(C).eval()
+    port.load_state_dict(state_dict_from_jax(params, {}), strict=True)
+    return port
+
+
+def _jax_ref(params, fea_v, fea_a):
+    return np.asarray(jax_fusion.fused_visual_fusion(
+        params, jnp.asarray(fea_v), jnp.asarray(fea_a), interpret=True))
+
+
+def _port_out(port, fea_v, fea_a):
+    b, h, w, _ = fea_v.shape
+    tokens = torch.from_numpy(fea_v).reshape(b, h * w, C)
+    return fusion.fused_visual_fusion(port, tokens, torch.from_numpy(fea_a)).numpy()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cached_operands_equal_fresh_ones(weights, dtype):
+    _, port = weights
+    audio = torch.from_numpy(_inputs(2, 4, 4, seed=4)[1])
+    ops = fusion.fusion_operands(port, audio, dtype)
+    again = fusion.fusion_operands(port, audio, dtype)
+    fresh = fusion._derive_weights(dict(port.named_parameters()), dtype)
+    assert set(ops) == set(fresh) | {"wqk", "m"}
+    for k, v in fresh.items():
+        assert again[k] is ops[k], f"{k} was derived again"
+        assert ops[k].dtype == dtype and ops[k].is_contiguous()
+        assert torch.equal(ops[k], v), k
+
+
+@pytest.mark.parametrize("how", ["in_place_step", "load_state_dict"])
+def test_operand_cache_follows_a_weight_update(how):
+    """The output follows new weights (against the JAX kernel in interpret
+    mode on those weights) after an in-place update of a chain weight, as an
+    optimizer step makes, or a load_state_dict."""
+    params = _jax_fusion_params(C, seed=0)
+    port = _slice_from(params)
+    fea_v, fea_a = _inputs(2, 7, 9, seed=5)
+    before = _port_out(port, fea_v, fea_a)
+    if how == "in_place_step":
+        fc1 = port.cross_att.blocks[0].mlp.fc1.weight
+        delta = np.random.RandomState(6).uniform(-0.05, 0.05, fc1.shape).astype(np.float32)
+        with torch.no_grad():
+            fc1.add_(torch.from_numpy(delta))
+        mlp = params["cross_att"]["block0"]["mlp"]["fc1"]
+        mlp["kernel"] = mlp["kernel"] + delta.T
+    else:
+        params = _jax_fusion_params(C, seed=8)
+        port.load_state_dict(state_dict_from_jax(params, {}), strict=True)
+    got = _port_out(port, fea_v, fea_a)
+    np.testing.assert_allclose(got, _jax_ref(params, fea_v, fea_a), **TOL)
+    assert np.abs(got - before).max() > 1e-3
+
+
+def test_operand_cache_keeps_two_models_apart(weights):
+    params, port = weights
+    params_b = _jax_fusion_params(C, seed=9)
+    port_b = _slice_from(params_b)
+    fea_v, fea_a = _inputs(2, 8, 8, seed=10)
+    got_a = _port_out(port, fea_v, fea_a)
+    got_b = _port_out(port_b, fea_v, fea_a)
+    np.testing.assert_allclose(got_b, _jax_ref(params_b, fea_v, fea_a), **TOL)
+    np.testing.assert_array_equal(_port_out(port, fea_v, fea_a), got_a)
+    np.testing.assert_allclose(got_a, _jax_ref(params, fea_v, fea_a), **TOL)
+
+
+# ---- the bf16 chain's tile plan and its contract with the source ------------
+
+# (B, N): ragged (no multiple of the tile), B = 1, the serving bucket, a
+# ragged train-sized batch, the train shape and the eval batch
+WALKS = [(3, 63), (1, 3136), (8, 3136), (3, 3199), (32, 3136), (120, 3136)]
+
+
+@pytest.mark.parametrize("B,N", WALKS)
+def test_tile_walk_covers_every_token_once(B, N):
+    sms, T = 132, fusion.TILE_TOKENS
+    walk = fusion.tile_walk(B, N, sms)
+    tiles = -(-N // T)
+    assert len(walk) == min(B * tiles, sms)
+    counts = [len(mine) for mine in walk]
+    assert max(counts) - min(counts) <= 1  # the persistent grid is balanced
+    seen = np.zeros((B, N), np.int64)
+    for block, mine in enumerate(walk):
+        for i, (b, first, valid) in enumerate(mine):
+            t = block + i * len(walk)  # image-major order, strided by the grid
+            assert (b, first) == (t // tiles, (t % tiles) * T)
+            assert 0 < valid <= T and (valid == T or first + valid == N)
+            seen[b, first:first + valid] += 1
+    assert (seen == 1).all()
+    if N % T:
+        assert walk and all(v == N % T for mine in walk for _, f, v in mine if f + T > N)
+
+
+def _chain_source():
+    return (Path(fusion.__file__).parents[2] / "csrc" / "fusion_chain_sm90.cuh").read_text()
+
+
+def test_wrapper_checks_follow_the_chain_source():
+    """The wrapper's tile and shape constants against the bf16 chain's
+    source (which only the card compiles), and its refusals before any
+    launch."""
+    src = _chain_source()
+    const = lambda name: int(re.search(r"constexpr int %s = (\d+);" % name, src).group(1))
+    assert const("kRows") == fusion.TILE_TOKENS
+    assert (const("kWideC"), const("kNarrowC")) == fusion.CHAIN_WIDTHS
+    assert const("kHidden") == fusion.CHAIN_HIDDEN
+    assert const("kHeads") == fusion.CHAIN_HEADS
+    body = re.search(r"inline bool supported\(int C, int hidden, int mlp_hidden, int heads\) "
+                     r"\{(.*?)\}", src, re.S).group(1)
+    assert "kWideC" in body and "kNarrowC" in body and "mlp_hidden % C == 0" in body
+    assert fusion.chain_supported(304, 256, 1216, 4) and fusion.chain_supported(112, 256, 448, 4)
+    for shape in ((320, 256, 1280, 4), (304, 128, 1216, 4), (304, 256, 1200, 4),
+                  (304, 256, 1216, 8), (304, 256, 0, 4)):
+        assert not fusion.chain_supported(*shape), shape
+    # the eval kernel's bf16 path goes through the chain and nothing else
+    k1 = (Path(fusion.__file__).parents[2] / "csrc" / "fusion_kernel.cu").read_text()
+    assert '#include "fusion_chain_sm90.cuh"' in k1 and "chain::launch<false>" in k1
+    assert "chain::supported(C, hidden, mlp_hidden, heads)" in k1
+    assert "wmma" not in k1 and "namespace tc" not in k1
+    # a shape the chain does not take is refused before the library loads
+    ops = {"w1": torch.zeros(320, 256, dtype=torch.bfloat16),
+           "wm1": torch.zeros(320, 1280, dtype=torch.bfloat16)}
+    with pytest.raises(ValueError, match="bf16 kernel takes"):
+        fusion._launch(torch.zeros(1, 8, 320, dtype=torch.bfloat16), ops, 4)
+
+
+def test_chain_arguments_follow_the_wrappers_operands():
+    """The chain's argument record against the eval wrapper's operand order
+    (the C function maps them in that order) and the train wrapper's."""
+    src = re.sub(r"//[^\n]*", "", _chain_source())
+    body = re.search(r"struct Args \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"\*?(\w+)\s*[,;]", body)
+    weights = fields[3:fields.index("y")]
+    assert fields[:3] == ["x", "wqk", "m"]
+    assert weights == list(ft.WEIGHT_NAMES)
+    k1 = re.sub(r"\s+", " ", (Path(fusion.__file__).parents[2] / "csrc"
+                               / "fusion_kernel.cu").read_text())
+    init = re.search(r"const chain::Args a\{(.*?)\};", k1).group(1)
+    names = [re.sub(r"\(const T\*\)|\(T\*\)", "", v).strip() for v in init.split(",")]
+    eval_order = ["x", "wqk", "m", "w1", "b1", "w2f", "b2f", "nullptr", "nullptr", "n1s", "n1b",
+                  "bp", "n2s", "n2b", "wm1", "bm1", "wm2", "bm2", "n3s", "n3b", "out", "B", "N",
+                  "mlp_hidden", "scale"]
+    assert names == eval_order

@@ -290,3 +290,25 @@ def test_bf16_backward_refuses_a_narrow_mlp_before_any_launch(weights):
     with pytest.raises(ValueError, match="mlp_hidden"):
         ft._BackwardPlan(x.bfloat16(), wqk2, m2, ws, dy, 4)
     assert ft.token_chain_train_backward.launches == before
+
+
+def test_bf16_forward_binding_follows_the_chain_source():
+    """The bf16 forward is the chain of ``csrc/fusion_chain_sm90.cuh`` (the
+    earlier WMMA body is gone), with the 17 operands handed over in the
+    order of :data:`WEIGHT_NAMES`, and shapes the chain does not take are
+    refused by the wrapper's check."""
+    csrc = Path(ft.__file__).parents[2] / "csrc"
+    src = re.sub(r"\s+", " ", (csrc / "fusion_train_kernel.cu").read_text())
+    assert '#include "fusion_chain_sm90.cuh"' in src
+    assert "chain::launch<true>" in src and "fwd_kernel<bf16" not in src
+    assert "wmma" not in src and "Mm<bf16" not in src
+    assert "chain::supported(C, hidden, mlp_hidden, heads)" in src
+    init = re.search(r"const chain::Args a\{(.*?)\};", src).group(1)
+    names = [re.sub(r"\((P|bf16\*)\)", "", v).strip() for v in init.split(",")]
+    assert names[:3] == ["x", "wqk2", "m2"]
+    assert names[3:20] == [f"w.{k}" for k in ft.WEIGHT_NAMES]
+    assert names[20:] == ["y", "B", "N", "mlp_hidden", "scale"]
+    # the train model's shapes (C 304, hidden 256, 4C, 4 heads) and the
+    # ResNet-18 one's (C 112) are taken; a narrower MLP is not
+    assert ft.chain_supported(C, 256, 4 * C, 4) and ft.chain_supported(112, 256, 448, 4)
+    assert not ft.chain_supported(C, 256, 512, 4)
