@@ -268,8 +268,7 @@ def _make_visual_feature_fn(model, config) -> Callable:
     """fea_v(image [B,3,H,W]) -> [B,latent,h,w], with ``use_pallas_layer1``
     routing ResNet layer1 through the fused bottleneck kernels
     (:mod:`cavp_tpu_torch.ops.kernels.layer1`). Eval only; DeepLabV3Plus.
-    The wrapper raises for a map on the card that its kernel does not take
-    (wider than a block's shared memory holds); nothing falls back."""
+    The kernel takes maps of any size; nothing falls back."""
     use_l1 = (config.use_pallas_layer1
               and getattr(model, "seg_model", "") == "DeepLabV3Plus")
     if not use_l1:

@@ -2,13 +2,13 @@
 PyTorch version.
 
 Replaces the TPU kernel ``cavp_tpu/ops/pallas/layer1_kernel.py``
-(``fused_layer1``): every bottleneck of the stage (1x1, 3x3 as nine
-shifted products, 1x1, eval BatchNorm folded into a per-channel affine,
-the downsample branch of block 0, residual, ReLU) with the intermediate
-activations kept on chip. The kernel is ``csrc/layer1_kernel.cu``; its
-source note gives the bound on the H100 (operations) and why the TPU's
-image-per-program design becomes one launch per bottleneck over row tiles
-with a recomputed one-row halo.
+(``fused_layer1``): every bottleneck of the stage (1x1, 3x3, 1x1, eval
+BatchNorm folded into a per-channel affine, the downsample branch of block
+0, residual, ReLU) with the intermediate activations kept on chip. The
+kernel is ``csrc/layer1_kernel.cu``, one launch per bottleneck; its source
+note gives the bound on the H100 (operations) and the design: tiles of rows
+and columns of one image with a one-pixel halo, the bf16 products on wgmma
+with the 3x3 as an implicit GEMM (the machinery of ``csrc/sm90.cuh``).
 
 The rounding points are the TPU kernel's, not the module path's: the
 folded affine is applied to the float32 sums, then ReLU, then one rounding
@@ -20,17 +20,18 @@ agrees to rounding, not bitwise.
 
 :func:`fused_layer1` takes the plain version only for tensors on the CPU.
 For a CUDA tensor it launches the kernels or raises: nothing gives way to
-the module path. A block keeps a tile of four rows (and its halo) in shared
-memory, so what bounds the map is its width alone; ``layer1_fits`` says
-whether a width fits (bf16 up to 132, float32 up to 76, which covers the
-128-wide map of 512-square images in bf16).
+the module path. Maps of any size go to the kernel: :func:`tile_plan`
+picks each bottleneck's tiles (:func:`tile_walk` lists them as the kernel
+takes them). The folded affines and the weights' casts and layouts are
+derived once per parameter version (:func:`layer1_operands`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List
+import weakref
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 import torch.nn as nn
@@ -38,28 +39,75 @@ import torch.nn.functional as F
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PLANES = 64          # the kernel's bottleneck width
-# mirrors of csrc/layer1_kernel.cu: output rows per block, the row stride
-# of its shared tiles, the warps' scratch, and a block's shared memory
-_ROWS = 4
-_TILE_ROW_BYTES = {torch.float32: (_PLANES + 4) * 4, torch.bfloat16: (_PLANES + 16) * 2}
-_SCRATCH_BYTES = 8 * 512 * 4
-_MAX_SMEM = 227 * 1024
-_MIN_W = 16
+# mirrors of csrc/layer1_kernel.cu (l1::geometry, l1::smem_bytes): a
+# position's 64 bf16 channels, the weight ring, the 64-row chunks a product
+# runs in (at most four a tile), and a block's shared memory
+_ROW_BYTES = 128
+_RING_BYTES = 6 * 8192 + 8 * (2 * 6 + 2) + 1024
+_MAX_CHUNKS = 4
+_MAX_SMEM = 232448
 
 
-def _smem_bytes(w: int, dtype: torch.dtype) -> int:
-    """A block's shared memory at map width ``w`` (``smem_bytes`` in the
-    source): the h1 tile with its halo and padding, the h2 tile, scratch."""
-    up16 = lambda v: -(-v // 16) * 16
-    h1_rows = up16(_ROWS * (w + 2)) + 2 * (w + 2) + 3
-    return (h1_rows + up16(_ROWS * w)) * _TILE_ROW_BYTES[dtype] + _SCRATCH_BYTES
+class TilePlan(NamedTuple):
+    """Output tiles of ``rows`` x ``cols`` pixels, ``pitch`` halo'd
+    positions a tile row (a multiple of 8, at least ``cols + 2``)."""
+    rows: int
+    cols: int
+    pitch: int
 
 
-def layer1_fits(w: int, dtype: torch.dtype = torch.bfloat16) -> bool:
-    """Whether the kernel takes maps ``w`` wide in ``dtype``: at least one
-    16-pixel tile, and a row tile within a block's shared memory. The
-    map's height and the batch do not matter."""
-    return w >= _MIN_W and _smem_bytes(w, dtype) <= _MAX_SMEM
+def _geometry(rows: int, pitch: int) -> Tuple[int, int, int, int]:
+    """(chunks of the first 1x1, chunks of the later products, input rows
+    a panel, rows of an h1 copy) of a tile, as ``l1::geometry``."""
+    P = (rows + 2) * pitch
+    nc1, nci = -(-P // 64), -(-(rows * pitch) // 64)
+    xrows = max(64 * nc1, pitch + 64 * nci)
+    hrows = -(-max(64 * nci + 2 * pitch, P + 1) // 8) * 8
+    return nc1, nci, xrows, hrows
+
+
+def _smem_bytes(cin: int, rows: int, pitch: int) -> int:
+    """A bf16 block's shared memory (``l1::smem_bytes``): cin / 64 input
+    panels, three h1 copies, the ring."""
+    _, _, xrows, hrows = _geometry(rows, pitch)
+    return _ROW_BYTES * ((cin // _PLANES) * xrows + 3 * hrows) + _RING_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(H: int, W: int, cin: int, cout: int, first: bool) -> TilePlan:
+    """The bottleneck's tiles on an H x W map: of every pitch and band
+    height that fits (at most four 64-row chunks a product, a block's shared
+    memory), the one with the fewest tensor-core operations, halo included,
+    then the fewest tiles. Bands and column tiles are balanced, so a ragged
+    edge is spread over them."""
+    per_row = 9 * _PLANES * _PLANES + _PLANES * cout + (cin * cout if first else 0)
+    best = None
+    for pitch in range(8, 257, 8):
+        tiles_x = -(-W // (pitch - 2))
+        cols = -(-W // tiles_x)
+        for band in range(1, min(H, 254) + 1):
+            tiles_y = -(-H // band)
+            rows = -(-H // tiles_y)
+            nc1, nci, _, _ = _geometry(rows, pitch)
+            if nc1 > _MAX_CHUNKS:
+                break
+            if nci > _MAX_CHUNKS or _smem_bytes(cin, rows, pitch) > _MAX_SMEM:
+                continue
+            tiles = tiles_x * tiles_y
+            cost = tiles * 64 * (nc1 * cin * _PLANES + nci * per_row)
+            key = (cost, tiles, -pitch)
+            if best is None or key < best[0]:
+                best = (key, TilePlan(rows, cols, pitch))
+    if best is None:
+        raise ValueError(f"no layer1 tile fits {cin} input channels in shared memory")
+    return best[1]
+
+
+def tile_walk(H: int, W: int, plan: TilePlan) -> List[Tuple[int, int, int, int]]:
+    """The tiles of one image as the kernel takes them (``tile_of``):
+    (first row, first column, valid rows, valid columns), band by band."""
+    return [(r0, c0, min(plan.rows, H - r0), min(plan.cols, W - c0))
+            for r0 in range(0, H, plan.rows) for c0 in range(0, W, plan.cols)]
 
 
 def _fold_bn(bn: nn.BatchNorm2d, eps: float):
@@ -68,17 +116,25 @@ def _fold_bn(bn: nn.BatchNorm2d, eps: float):
     return s.contiguous(), (bn.bias.float() - bn.running_mean.float() * s).contiguous()
 
 
-@torch.no_grad()
-def layer1_operands(backbone: nn.Module, dtype: torch.dtype, eps: float = 1e-5
-                    ) -> List[Dict[str, torch.Tensor]]:
+def _block_tensors(blk: nn.Module) -> Dict[str, torch.Tensor]:
+    """The tensors one bottleneck's operands are derived from, by name."""
+    mods = {"conv1": blk.conv1, "conv2": blk.conv2, "conv3": blk.conv3,
+            "bn1": blk.bn1, "bn2": blk.bn2, "bn3": blk.bn3}
+    if blk.downsample is not None:
+        mods.update(convd=blk.downsample[0], bnd=blk.downsample[1])
+    out = {}
+    for name, m in mods.items():
+        names = ("weight",) if name.startswith("conv") else (
+            "weight", "bias", "running_mean", "running_var")
+        for k in names:
+            out[f"{name}.{k}"] = getattr(m, k)
+    return out
+
+
+def _derive_operands(blocks, dtype: torch.dtype, eps: float) -> List[Dict[str, torch.Tensor]]:
     """Per bottleneck: the conv weights in ``dtype`` laid out [in, out]
     (w2 tap-major, [9, in, out]) and the folded BatchNorm affines in
     float32; block 0 also holds the downsample branch (wd, sd, td)."""
-    blocks = list(backbone.layer1)
-    if not blocks:
-        raise ValueError("the backbone has no layer1 blocks")
-    if blocks[0].downsample is None:
-        raise ValueError("layer1's first block must have a downsample branch")
     out = []
     for i, blk in enumerate(blocks):
         if (blk.conv2.kernel_size != (3, 3) or blk.conv2.stride != (1, 1)
@@ -102,6 +158,40 @@ def layer1_operands(backbone: nn.Module, dtype: torch.dtype, eps: float = 1e-5
             ops["sd"], ops["td"] = _fold_bn(bn, eps)
         out.append({k: v.contiguous() for k, v in ops.items()})
     return out
+
+
+# layer1_operands' results, newest last: (dtype, device, eps, [(weakref,
+# _version, data_ptr) of each tensor read], operands)
+_OPERAND_CACHE: List[tuple] = []
+_OPERAND_CACHE_SIZE = 4
+
+
+@torch.no_grad()
+def layer1_operands(backbone: nn.Module, dtype: torch.dtype, eps: float = 1e-5
+                    ) -> List[Dict[str, torch.Tensor]]:
+    """:func:`_derive_operands` of the backbone's layer1, kept while every
+    conv weight and BatchNorm tensor it read is the same tensor at the same
+    version (an in-place update bumps ``_version``; ``load_state_dict``
+    copies in place; a new tensor fails the identity check) and at the same
+    address."""
+    blocks = list(backbone.layer1)
+    if not blocks:
+        raise ValueError("the backbone has no layer1 blocks")
+    if blocks[0].downsample is None:
+        raise ValueError("layer1's first block must have a downsample branch")
+    tensors = [t for blk in blocks for t in _block_tensors(blk).values()]
+    device = tensors[0].device
+    for i, (dt, dev, ep, marks, ops) in enumerate(_OPERAND_CACHE):
+        if dt == dtype and dev == device and ep == eps and len(marks) == len(tensors) and all(
+                ref() is t and ver == t._version and ptr == t.data_ptr()
+                for (ref, ver, ptr), t in zip(marks, tensors)):
+            _OPERAND_CACHE.append(_OPERAND_CACHE.pop(i))
+            return ops
+    ops = _derive_operands(blocks, dtype, eps)
+    marks = [(weakref.ref(t), t._version, t.data_ptr()) for t in tensors]
+    _OPERAND_CACHE.append((dtype, device, eps, marks, ops))
+    del _OPERAND_CACHE[:-_OPERAND_CACHE_SIZE]
+    return ops
 
 
 def _bottleneck_reference(x: torch.Tensor, o: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -150,36 +240,48 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library()
     fn = lib.cavp_layer1_bottleneck
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.cavp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.cavp_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(x: torch.Tensor, blocks) -> torch.Tensor:
-    B, H, W, _ = x.shape
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the kernel grid's 65535")
-    if not layer1_fits(W, x.dtype):
-        raise ValueError(f"the kernel takes {x.dtype} maps from {_MIN_W} wide up to what "
-                         f"{_MAX_SMEM} bytes of shared memory hold, got width {W} "
-                         f"({_smem_bytes(W, x.dtype)} bytes)")
+def _launch_plans(x: torch.Tensor, blocks) -> List[TilePlan]:
+    """What the kernel takes, checked before anything launches: a
+    contiguous, 16-byte aligned float32 or bf16 map of any size, bottlenecks
+    of width 64 with channel counts that are multiples of 64, operands of the
+    right dtypes on the map's device. Returns each bottleneck's tile plan."""
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"unsupported dtype {x.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("the stem output must be contiguous in [B, H, W, C] and 16-byte aligned")
+    _, H, W, _ = x.shape
+    plans = []
     for o in blocks:
         cin, planes = o["w1"].shape
         cout = o["w3"].shape[1]
-        if planes != _PLANES or cin % 16 or cout % _PLANES:
-            raise ValueError(f"the kernel takes bottlenecks of width {_PLANES} with the "
-                             f"input a multiple of 16 and the output a multiple of "
-                             f"{_PLANES} channels, got {cin} -> {planes} -> {cout}")
+        if planes != _PLANES or cin % _PLANES or cout % _PLANES:
+            raise ValueError(f"the kernel takes bottlenecks of width {_PLANES} with input and "
+                             f"output channels multiples of {_PLANES}, got {cin} -> {planes} "
+                             f"-> {cout}")
         for k, v in o.items():
             want = torch.float32 if k[0] in "st" else x.dtype
             if v.device != x.device or v.dtype != want or not v.is_contiguous():
                 raise ValueError(f"operand {k} must be a contiguous {want} tensor on {x.device}")
+        plans.append(tile_plan(H, W, cin, cout, "wd" in o))
+    return plans
+
+
+def _launch(x: torch.Tensor, blocks) -> torch.Tensor:
+    if x.device.type != "cuda":
+        raise ValueError(f"no layer1 kernel for device {x.device}")
+    plans = _launch_plans(x, blocks)
+    B, H, W, _ = x.shape
     lib = _library()
     code = _DTYPE_CODE[x.dtype]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    for o in blocks:
+    for o, plan in zip(blocks, plans):
         cin, cout = o["w1"].shape[0], o["w3"].shape[1]
         out = torch.empty(B, H, W, cout, dtype=x.dtype, device=x.device)
         ptr = lambda k: o[k].data_ptr() if k in o else None
@@ -187,7 +289,7 @@ def _launch(x: torch.Tensor, blocks) -> torch.Tensor:
             code, x.data_ptr(), out.data_ptr(),
             ptr("w1"), ptr("s1"), ptr("t1"), ptr("w2"), ptr("s2"), ptr("t2"),
             ptr("w3"), ptr("s3"), ptr("t3"), ptr("wd"), ptr("sd"), ptr("td"),
-            B, H, W, cin, cout, stream)
+            B, H, W, cin, cout, plan.rows, plan.cols, plan.pitch, stream)
         if err != 0:
             msg = lib.cavp_cuda_error_string(err).decode()
             raise RuntimeError(f"layer1 kernel launch failed: {msg} ({err})")
@@ -206,7 +308,7 @@ def fused_layer1(backbone: nn.Module, x: torch.Tensor, eps: float = 1e-5) -> tor
 
     CPU tensors take :func:`fused_layer1_reference`; CUDA tensors launch
     the kernel, once per bottleneck (each launch counts in
-    ``fused_layer1.launches``), or raise.
+    ``fused_layer1.launches``), at any map size, or raise.
     """
     if x.device.type == "cpu":
         return fused_layer1_reference(backbone, x, eps)
@@ -214,8 +316,6 @@ def fused_layer1(backbone: nn.Module, x: torch.Tensor, eps: float = 1e-5) -> tor
         raise ValueError(f"no layer1 kernel for device {x.device}")
     blocks = layer1_operands(backbone, x.dtype, eps)
     _check(x, blocks)
-    if not x.is_contiguous():
-        raise ValueError("the stem output must be contiguous in [B, H, W, C]")
     return _launch(x, blocks)
 
 

@@ -45,14 +45,15 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
    the three;
 9. holds the upsample + argmax kernel against its plain version: bit-equal
    masks for bf16 at [120, 56, 56, 71] -> 224 x 224 and [8, ...], at a
-   ragged size and with exact ties planted; float32 equal wherever the top
-   two resized logits differ by more than 1e-5; timed beside
+   ragged size, with exact ties planted and on a tie-heavy input (logits
+   of five values); two bf16 launches bit-equal; float32 equal wherever the
+   top two resized logits differ by more than 1e-5; timed beside
    ``F.interpolate`` + ``argmax``;
 10. holds the fused layer1 kernels against their plain version on the stem
     output of real batches: float32 (TF32 off) and bf16 at B = 120 and
-    B = 8, and bf16 at the 128-wide map of 512-square images (float32
-    must be refused there: its row tile exceeds shared memory), timed
-    beside the ``layer1`` modules;
+    B = 8, bf16 at a ragged map (37 x 45), at the 128-wide map of
+    512-square images and at a 200-wide map, and float32 at the 128-wide
+    map; two bf16 launches bit-equal; timed beside the ``layer1`` modules;
 11. runs the eval step at batch 120 and the ``Predictor`` requests of
     phase 4 with every kernel flag on (mel, layer1, fusion, argmax):
     checks that each step launched each of the four eval kernels once
@@ -875,22 +876,28 @@ def argmax_kernel_phase(config, device) -> dict:
         x[0, h // 2:, w // 2:, :] = 0.25
         return x
 
+    def tie_heavy(shape, dtype):
+        """Logits of five values: most classes tie at most pixels."""
+        return (torch.randint(-2, 3, shape, generator=g) * 0.5).to(device, dtype)
+
     results = {}
     cases = (("bf16", (EVAL_BATCH, *low, C), hw, torch.bfloat16),
+             ("bf16_tie_heavy", (EVAL_BATCH, *low, C), hw, torch.bfloat16),
              ("bf16_bucket8", (8, *low, C), hw, torch.bfloat16),
              ("bf16_ragged", (3, 30, 40, 5), (120, 160), torch.bfloat16),
              ("bf16_odd_ratio", (3, 30, 40, 5), (97, 131), torch.bfloat16),
              ("f32", (8, *low, C), hw, torch.float32),
              ("f32_ragged", (3, 30, 40, 5), (120, 160), torch.float32))
     for name, shape, out_hw, dtype in cases:
-        x = logits(shape, dtype)
+        x = (tie_heavy if name.endswith("tie_heavy") else logits)(shape, dtype)
         got = upsample_argmax(x, out_hw)
         ref = upsample_argmax_reference(x, out_hw)
         torch.cuda.synchronize()
         require(got.shape == (shape[0], *out_hw) and got.dtype == torch.int32,
                 f"argmax kernel output {got.shape} {got.dtype}")
         require(0 <= int(got.min()) and int(got.max()) < shape[3], "argmax kernel range")
-        require(int(got[0, -1, -1]) == 0, "a full tie did not go to the first class")
+        if name != "bf16_tie_heavy":
+            require(int(got[0, -1, -1]) == 0, "a full tie did not go to the first class")
         differ = got != ref
         n_diff = int(differ.sum())
         if dtype == torch.float32 and n_diff:
@@ -904,6 +911,10 @@ def argmax_kernel_phase(config, device) -> dict:
               f"{got.numel()} mask entries differ from the plain version "
               f"({'bit-equal' if n_diff == 0 else 'near-ties only'}; ties planted)")
         results[name] = float(n_diff)
+        if name == "bf16":
+            again = upsample_argmax(x, out_hw)
+            require(bool(torch.equal(got, again)), "two bf16 argmax launches differ")
+            print("[argmax-kernel] two bf16 launches at the eval shape: bit-equal")
 
     x = logits((EVAL_BATCH, *low, C), torch.bfloat16)
     x_nchw = x.permute(0, 3, 1, 2)   # the head's own layout: channels_last
@@ -943,11 +954,28 @@ def layer1_kernel_phase(config, model, device) -> dict:
         stem = stem.permute(0, 2, 3, 1).contiguous()   # [B, 56, 56, 128]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    def stem_of(n, height, width, seed):
+        """The stem output [n, height / 4, width / 4, 128] of seeded images."""
+        img = torch.randn(n, 3, height, width, generator=torch.Generator().manual_seed(seed))
+        with torch.inference_mode():
+            out = resnet.stem_forward(img.to(device, model.dtype))
+        return out.permute(0, 2, 3, 1).contiguous()
+
+    # the eval batch, the serving bucket, a ragged map (neither side a
+    # multiple of a tile), the 128-wide map of 512-square images and a
+    # 200-wide one (both wider than the earlier row-tile kernel took)
+    cases = [("f32", stem[:EVAL_BATCH], torch.float32),
+             ("f32_bucket8", stem[:8], torch.float32),
+             ("bf16_bucket8", stem[:8], torch.bfloat16),
+             ("bf16", stem[:EVAL_BATCH], torch.bfloat16),
+             ("bf16_ragged", stem_of(3, 148, 180, SEED + 25), torch.bfloat16),
+             ("bf16_wide", stem_of(2, 512, 512, SEED + 24), torch.bfloat16),
+             ("f32_wide", stem_of(2, 512, 512, SEED + 24), torch.float32),
+             ("bf16_200_wide", stem_of(2, 160, 800, SEED + 26), torch.bfloat16)]
     results = {}
-    for name, b, dtype in (("f32", EVAL_BATCH, torch.float32), ("f32_bucket8", 8, torch.float32),
-                           ("bf16_bucket8", 8, torch.bfloat16),
-                           ("bf16", EVAL_BATCH, torch.bfloat16)):
-        x = stem[:b].to(dtype)
+    for name, x, dtype in cases:
+        x = x.to(dtype)
         got = fused_layer1(resnet, x)
         ref = fused_layer1_reference(resnet, x)
         torch.cuda.synchronize()
@@ -968,35 +996,12 @@ def layer1_kernel_phase(config, model, device) -> dict:
                   f"{mean:.3e}, largest output {scale:.3f} (max {L1_BF16_MAX_REL} and mean "
                   f"{L1_BF16_MEAN_REL} of it: {'ok' if ok else 'FAIL'})")
             require(ok, f"the bf16 layer1 kernel disagrees with the plain version ({name})")
+        if name == "bf16":
+            again = fused_layer1(resnet, x)
+            require(bool(torch.equal(got, again)), "two bf16 layer1 launches differ")
+            print(f"[layer1-kernel] two bf16 launches at {list(x.shape)}: bit-equal")
         results[name] = mx
-
-    # 512-square images give a 128-wide map: bf16 fits a block's shared
-    # memory and runs, float32 does not and is refused, not rerouted
-    big = torch.randn(2, 3, 512, 512, generator=torch.Generator().manual_seed(SEED + 24))
-    with torch.inference_mode():
-        wide = resnet.stem_forward(big.to(device, model.dtype)).permute(0, 2, 3, 1).contiguous()
-    require(tuple(wide.shape) == (2, 128, 128, 128), f"stem output {tuple(wide.shape)}")
-    got, ref = fused_layer1(resnet, wide), fused_layer1_reference(resnet, wide)
-    torch.cuda.synchronize()
-    err = (got.float() - ref.float()).abs()
-    mx, mean, scale = float(err.max()), float(err.mean()), float(ref.float().abs().max())
-    ok = (bool(torch.isfinite(got).all()) and scale > 0.1
-          and mx <= L1_BF16_MAX_REL * scale and mean <= L1_BF16_MEAN_REL * scale)
-    print(f"[layer1-kernel] bf16_wide {list(wide.shape)}: max_abs_err {mx:.3e} mean_abs_err "
-          f"{mean:.3e}, largest output {scale:.3f} (max {L1_BF16_MAX_REL} and mean "
-          f"{L1_BF16_MEAN_REL} of it: {'ok' if ok else 'FAIL'})")
-    require(ok, "the bf16 layer1 kernel disagrees with the plain version (bf16_wide)")
-    results["bf16_wide"] = mx
-    before = fused_layer1.launches
-    try:
-        fused_layer1(resnet, wide.float())
-        refused = False
-    except ValueError as e:
-        refused = "shared memory" in str(e)
-    require(refused and fused_layer1.launches == before,
-            "a float32 map 128 wide was not refused before any launch")
-    print("[layer1-kernel] f32 at 128 wide: refused (a row tile exceeds shared memory)")
-    del big, wide, got, ref, err
+    del cases, got, ref, err
 
     x = stem.to(torch.bfloat16)
     x_nchw = x.permute(0, 3, 1, 2)

@@ -24,6 +24,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from cavp_tpu.engine import loops as jax_loops
 from cavp_tpu.models.resnet import ResNet as JaxResNet
 from cavp_tpu.ops.pallas.layer1_kernel import fused_layer1 as jax_fused_layer1
 from cavp_tpu_torch.config import get_config
@@ -32,7 +33,7 @@ from cavp_tpu_torch.engine.convert import state_dict_from_jax
 from cavp_tpu_torch.engine.runner import build_model
 from cavp_tpu_torch.models.resnet import ResNet
 from cavp_tpu_torch.ops.kernels import layer1 as l1
-from torch_port_common import release_after_module  # noqa: F401 (autouse)
+from torch_port_common import model_pair, release_after_module  # noqa: F401 (autouse)
 from torch_ref import randomize_bn_stats
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -145,28 +146,121 @@ def test_operand_layouts_and_the_folded_affine():
 
 
 def test_gate_and_the_wrappers_errors():
-    """The gate is the kernel's shared memory at the map's width (its
-    source's ``smem_bytes``): 56- and 128-wide maps fit in bf16, float32
-    stops earlier, and fewer than 16 columns make no tile. The plain
-    version on the CPU takes any map."""
-    assert l1.layer1_fits(56) and l1.layer1_fits(16) and l1.layer1_fits(128)
-    assert l1.layer1_fits(56, torch.float32) and not l1.layer1_fits(128, torch.float32)
-    assert not l1.layer1_fits(15) and not l1.layer1_fits(133)
-    assert l1._smem_bytes(128, torch.bfloat16) == 224864 <= l1._MAX_SMEM
+    """The kernel takes maps of any size: the launch path's checks accept
+    the 133- and 140-wide bf16 maps and the 128-wide float32 map that the
+    row-tile kernel refused, and still refuse what the kernel cannot take
+    (channel counts, dtype, device). The plain version on the CPU takes any
+    map."""
     m = ResNet(18, RSWD).eval()
+    for shape, dtype in (((1, 8, 133, 128), torch.bfloat16), ((1, 8, 140, 128), torch.bfloat16),
+                         ((1, 128, 128, 128), torch.float32), ((1, 3, 1, 128), torch.float32)):
+        x = torch.zeros(shape, dtype=dtype)
+        plans = l1._launch_plans(x, l1.layer1_operands(m, dtype))
+        assert len(plans) == 2 and all(p.cols + 2 <= p.pitch for p in plans), plans
     with pytest.raises(ValueError, match="channels"):
         l1.fused_layer1(m, torch.zeros(1, 8, 8, 64))
+    narrow = [dict(o, w1=o["w1"][:, :32]) for o in l1.layer1_operands(m, torch.float32)]
+    with pytest.raises(ValueError, match="width 64"):
+        l1._launch_plans(torch.zeros(1, 8, 8, 128), narrow)
     with pytest.raises(ValueError, match="dtype"):
         l1.fused_layer1(m, torch.zeros(1, 8, 8, 128, dtype=torch.float16))
+    with pytest.raises(ValueError, match="dtype"):
+        l1._launch_plans(torch.zeros(1, 8, 8, 128, dtype=torch.float16),
+                         l1.layer1_operands(m, torch.float16))
     before = l1.fused_layer1.launches
     with pytest.raises(ValueError, match="no layer1 kernel"):
         l1.fused_layer1(m, torch.zeros(1, 8, 8, 128, device="meta"))
-    # the launch path refuses a width before any kernel runs
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="no layer1 kernel"):
         l1._launch(torch.zeros(1, 8, 140, 128, dtype=torch.bfloat16),
                    l1.layer1_operands(m, torch.bfloat16))
     l1.fused_layer1(m, torch.zeros(1, 8, 8, 128))  # the CPU takes the plain version
     assert l1.fused_layer1.launches == before
+
+
+@pytest.mark.parametrize("W", [1, 15, 16, 56, 133, 257])
+def test_tile_plan_covers_every_pixel_once_with_its_halo_in_the_box(W):
+    """Each bottleneck's plan (block 0: 128 -> 256 with the downsample;
+    later blocks 256 -> 256) at maps 7 and 56 rows high: the tiles of
+    ``tile_walk`` cover every output pixel once; the halo'd box (rows + 2
+    by pitch positions) holds each tile's one-pixel halo; the chunks and
+    shared memory stay within the kernel's limits (``l1::geometry``)."""
+    for H in (7, 56):
+        for cin, first in ((128, True), (256, False)):
+            plan = l1.tile_plan(H, W, cin, 256, first)
+            assert plan.pitch % 8 == 0 and plan.cols + 2 <= plan.pitch <= 256
+            nc1, nci, _, _ = l1._geometry(plan.rows, plan.pitch)
+            assert nc1 <= l1._MAX_CHUNKS and nci <= l1._MAX_CHUNKS
+            assert l1._smem_bytes(cin, plan.rows, plan.pitch) <= l1._MAX_SMEM
+            seen = np.zeros((H, W), np.int64)
+            for r0, c0, rows, cols in l1.tile_walk(H, W, plan):
+                assert 0 < rows <= plan.rows and 0 < cols <= plan.cols
+                seen[r0:r0 + rows, c0:c0 + cols] += 1
+                # box rows r0 - 1 .. r0 + plan.rows, columns c0 - 1 .. c0 - 2 + pitch
+                assert r0 - 1 + plan.rows + 2 >= r0 + rows + 1
+                assert c0 - 1 + plan.pitch >= c0 + cols + 1
+            assert (seen == 1).all()
+            tiles = -(-H // plan.rows) * -(-W // plan.cols)
+            assert len(l1.tile_walk(H, W, plan)) == tiles
+
+
+def _port_resnet(seed):
+    """A port ResNet-18 with seeded weights and BatchNorm statistics off
+    identity (no JAX side: the cache tests hold the wrapper against the
+    port's own module chain)."""
+    torch.manual_seed(seed)
+    m = ResNet(18, RSWD).eval()
+    randomize_bn_stats(m, seed)
+    return m
+
+
+@pytest.fixture(scope="module")
+def cache_model():
+    return _port_resnet(5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cached_operands_equal_fresh_ones(cache_model, dtype):
+    ops = l1.layer1_operands(cache_model, dtype)
+    again = l1.layer1_operands(cache_model, dtype)
+    fresh = l1._derive_operands(list(cache_model.layer1), dtype, 1e-5)
+    assert len(ops) == len(fresh) == len(again)
+    for o, a, f in zip(ops, again, fresh):
+        assert set(o) == set(f)
+        for k in f:
+            assert a[k] is o[k], f"{k} was derived again"
+            assert o[k].is_contiguous() and torch.equal(o[k], f[k]), k
+
+
+@pytest.mark.parametrize("how", ["in_place_step", "load_state_dict"])
+def test_operand_cache_follows_a_weight_update(how):
+    """After an in-place update of a conv weight (as an optimizer step
+    makes) or of a BatchNorm statistic, or a load_state_dict, the wrapper's
+    output is the plain version on the new weights, not the cached one."""
+    m = _port_resnet(6)
+    x = torch.from_numpy(np.random.RandomState(7).randn(1, 4, 5, 128).astype(np.float32))
+    before = l1.fused_layer1(m, x)
+    if how == "in_place_step":
+        with torch.no_grad():
+            m.layer1[1].conv2.weight.mul_(1.5)
+            m.layer1[0].bn3.running_var.add_(0.5)
+    else:
+        m.load_state_dict(_port_resnet(8).state_dict())
+    got = l1.fused_layer1(m, x)
+    with torch.no_grad():
+        want = m.layer1(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    assert float((got - before).abs().max()) > 1e-3
+
+
+def test_operand_cache_keeps_two_models_apart(cache_model):
+    other = _port_resnet(9)
+    x = torch.from_numpy(np.random.RandomState(10).randn(1, 4, 5, 128).astype(np.float32))
+    a, b = l1.fused_layer1(cache_model, x), l1.fused_layer1(other, x)
+    with torch.no_grad():
+        for m, got in ((cache_model, a), (other, b)):
+            want = m.layer1(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    assert torch.equal(l1.fused_layer1(cache_model, x), a)
 
 
 def test_visual_feature_fn_routes_layer1_at_every_map_size(monkeypatch):
@@ -195,3 +289,24 @@ def test_visual_feature_fn_routes_layer1_at_every_map_size(monkeypatch):
     assert len(calls) == 3
     off = loops._make_visual_feature_fn(model, cfg.replace(use_pallas_layer1=False))
     assert off == model.forward_visual_feature
+
+
+def test_visual_feature_fn_matches_jax_on_a_map_wider_than_132(monkeypatch):
+    """A 16 x 560 image (a 4 x 140 map, wider than the earlier row-tile
+    kernel took) with the flag on: the port sends layer1 to its kernel
+    wrapper, the JAX package's eval-step visual feature falls back to its
+    modules (its kernel takes maps up to 56 wide); both agree to 1e-4
+    (relative and absolute), as in the routing test above."""
+    model, cfg, jmodel, jcfg, jvars = model_pair(seed=2, use_pallas_layer1=True)
+    image = np.random.RandomState(3).randn(1, 16, 560, 3).astype(np.float32)
+    calls = []
+    real = loops.fused_layer1
+    monkeypatch.setattr(loops, "fused_layer1",
+                        lambda bkb, x: calls.append(tuple(x.shape)) or real(bkb, x))
+    with torch.no_grad():
+        got = loops._make_visual_feature_fn(model, cfg)(
+            torch.from_numpy(image).permute(0, 3, 1, 2))
+    assert calls == [(1, 4, 140, 128)]
+    fea_v = jax.jit(jax_loops._make_visual_feature_fn(jmodel, jcfg))
+    ref = np.asarray(fea_v(jvars, jnp.asarray(image)))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref, rtol=1e-4, atol=1e-4)

@@ -31,6 +31,7 @@ from cavp_tpu.ops.interp import (
 from cavp_tpu.ops.pallas.upsample_argmax_kernel import upsample_argmax as jax_upsample_argmax
 from cavp_tpu_torch.ops.interp import axis_taps, interp_matrix, interpolate_bilinear_separable
 from cavp_tpu_torch.ops.kernels.upsample_argmax import (
+    column_groups,
     tile_rows,
     upsample_argmax,
     upsample_argmax_reference,
@@ -154,3 +155,26 @@ def test_wrapper_checks_its_input_and_never_falls_back():
     assert tile_rows(56, 71) == 4 and tile_rows(128, 71) == 2 and tile_rows(512, 71) == 1
     with pytest.raises(ValueError, match="shared memory"):
         tile_rows(1024, 71)
+
+
+@pytest.mark.parametrize("sizes", [(56, 224, False), (14, 56, False), (10, 33, False),
+                                   (8, 32, True), (5, 5, False), (3, 40, False), (40, 131, True)])
+def test_column_groups_cover_every_column_once_with_its_taps(sizes):
+    """The W pass's work items: runs of at most 4 output columns, in order,
+    covering each column once; every column of a run reads only the run's
+    two source columns, which are the nonzero entries of its row of the
+    JAX package's interpolation matrix (both, where they differ)."""
+    n_in, n_out, align = sizes
+    m = jax_interp_matrix(n_in, n_out, align)
+    groups = column_groups(n_in, n_out, align)
+    assert groups.dtype == torch.int32 and groups.shape[1] == 4
+    nxt = 0
+    for first, count, lo, hi in groups.tolist():
+        assert first == nxt and 1 <= count <= 4 and 0 <= lo <= hi < n_in
+        for X in range(first, first + count):
+            nonzero = set(np.flatnonzero(m[X]).tolist())
+            assert nonzero <= {lo, hi} and (lo in nonzero or hi in nonzero)
+        nxt = first + count
+    assert nxt == n_out
+    if (n_in, n_out) == (56, 224):  # 4x: four columns share a pair, the edges two more
+        assert groups[:, 1].tolist() == [4, 2] + [4] * 54 + [2]
