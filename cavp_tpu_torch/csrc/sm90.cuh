@@ -1,9 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels: the
 // fusion chain (fusion_chain_sm90.cuh, for fusion_kernel.cu and
-// fusion_train_kernel.cu) and the layer1 bottleneck (layer1_kernel.cu).
+// fusion_train_kernel.cu), the layer1 bottleneck (layer1_kernel.cu) and the
+// mel frontend (mel_kernel.cu).
 //
-// - PTX wrappers: mbarriers, TMA tile loads (2-D and 4-D boxes), wgmma
-//   m64nNk16 with both operands in shared memory, and its descriptors.
+// - PTX wrappers: mbarriers, TMA tile loads (2-D and 4-D boxes) and bulk
+//   copies of contiguous bytes, bf16 wgmma m64nNk16 with both operands in
+//   shared memory, TF32 wgmma m64nNk8 with A from registers, and their
+//   descriptors.
 // - Host side: tensor maps over row-major bf16 matrices and channels-last
 //   maps, 128-byte swizzle, boxes of kPanel (64) columns.
 // - A ring of weight slabs in shared memory: one producer thread fills its
@@ -126,6 +129,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// contiguous bytes (a multiple of 16, 16-byte aligned at both ends) into
+// shared memory, completing on bar: for operands laid out in global memory
+// as they land, swizzle included
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // m64n176k16, A from shared memory (K-major), B from shared memory (MN-major)
 __device__ __forceinline__ void wgmma_ss_176(float (&d)[88], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
@@ -218,6 +233,75 @@ __device__ __forceinline__ void mma_ss(float (&d)[W / 2], uint64_t a, uint64_t b
   else {
     static_assert(W == 48, "no wgmma wrapper for this width");
     wgmma_ss_48(d, a, b, acc);
+  }
+}
+
+// ---- TF32 (the mel frontend's split products) ------------------------------------
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero: the
+// 32-bit pattern a .tf32 wgmma reads, low 13 bits zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// A thread's A fragment of an m64nNk8 TF32 product from registers: a[0] and
+// a[1] are rows r0 and r0 + 8 (Lane::r0) at column tq of the 8-deep step,
+// a[2] and a[3] the same rows at column tq + 4. B is K-major: a .tf32 wgmma
+// takes no transposed operand.
+// m64n120k8 TF32, A from registers, B from shared memory (K-major)
+__device__ __forceinline__ void wgmma_rs_tf32_120(float (&d)[60], const uint32_t (&a)[4], uint64_t b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %65, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n120k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      "%54, %55, %56, %57, %58, %59}"
+      ", {%60, %61, %62, %63}, %64, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// m64n128k8 TF32, A from registers, B from shared memory (K-major)
+__device__ __forceinline__ void wgmma_rs_tf32_128(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+template <int N>
+__device__ __forceinline__ void mma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                            int acc) {
+  if constexpr (N == 120) wgmma_rs_tf32_120(d, a, b, acc);
+  else {
+    static_assert(N == 128, "no TF32 wgmma wrapper for this width");
+    wgmma_rs_tf32_128(d, a, b, acc);
   }
 }
 

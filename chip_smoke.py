@@ -39,10 +39,13 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
    backward's three kernels once,
    then takes the same steps from the same state on the module path and
    prints step time, frames/s and peak memory of both;
-8. holds the log-mel kernel against its plain version and against the
-   unfused ``preprocess_audio`` (float32, 120 and 8 rows of 16000 samples,
-   and a frame count that is no multiple of the kernel's tile), and times
-   the three;
+8. holds the log-mel kernel against the function in float64, beside its
+   plain version and the unfused ``preprocess_audio`` (float32, 120 and 8
+   rows of 16000 samples, a frame count that is no multiple of the kernel's
+   tile, a tone over a noise floor and the 60-7000 Hz band; two launches
+   bit-equal), and times it beside the plain version, the unfused
+   frontend and a composition of ``torch.fft.rfft``, power, filterbank and
+   log, with its bound and the old dense design's;
 9. holds the upsample + argmax kernel against its plain version: bit-equal
    masks for bf16 at [120, 56, 56, 71] -> 224 x 224 and [8, ...], at a
    ragged size, with exact ties planted and on a tie-heavy input (logits
@@ -87,9 +90,10 @@ BENCH_SHAPE = (120, 3136, 304)  # eval batch x 56*56 tokens x DeepLab feature
 TRAIN_SHAPE = (32, 3136, 304)   # train batch x 56*56 tokens x DeepLab feature
 TRAIN_BATCH = 32
 # H100 SXM data sheet: dense bf16 tensor rate, float32 rate outside the
-# tensor cores, HBM3 bandwidth
+# tensor cores, dense TF32 tensor rate, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 # gradients, float32 kernels against plain: the tests' 1e-4 x max|grad|.
 # bf16: both round at the same points, so they differ where another float
@@ -109,8 +113,13 @@ BF16_MEAN_ABS = 0.005
 MASK_AGREEMENT = 0.99
 REQUEST_SIZES = (1, 5, 8, 11)
 EVAL_BATCH = 120
-# log-mel kernel against plain and against the unfused path, on the [-1, 1]
-# output scale (a dB is 0.01): float32 sums taken in other orders
+# log-mel kernel against the function in float64, on the [-1, 1] output
+# scale (a dB is 0.01): within MEL_ATOL, or within twice the plain version's
+# distance plus 1e-7 where the plain float32 version is itself further. The
+# kernel sums on the tensor cores, in another order than the float32 matrix
+# products of the plain version, and where a band's power comes from the
+# cancellation of large terms (noise near a bin's null, a tone's leakage)
+# each float32 order is more than MEL_ATOL from the exact function
 MEL_ATOL = 2e-6
 # the mel kernel's 1e-7 differences move a few bf16 roundings of the audio
 # tower's input, and the seeded random model turns those into flipped
@@ -208,6 +217,29 @@ def cuda_ms(fn, iters: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def back_to_back_ms(fn, launches: int = 50, repeats: int = 3) -> float:
+    """Median over ``repeats`` of the mean milliseconds of ``fn()`` in a row
+    of ``launches`` calls between two CUDA events: the device's time, with
+    the host's work of each call overlapped by the launches before it
+    (``cuda_ms`` times one call at a time, host work included, which shows
+    for a kernel of tens of microseconds)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -796,59 +828,108 @@ def interleaved_ms(arms: dict, iters: int) -> dict:
 
 
 def mel_kernel_phase(config, device) -> dict:
-    """Phase 8: the log-mel kernel against its plain version and the
-    unfused frontend."""
+    """Phase 8: the log-mel kernel against the function in float64, beside
+    its plain version and the unfused frontend."""
     import numpy as np
     import torch
 
-    from cavp_tpu_torch.audio.mel import preprocess_audio
-    from cavp_tpu_torch.ops.kernels.mel import fused_log_mel, fused_log_mel_reference
+    from cavp_tpu_torch.audio.functional import db_from_amp, normalize_spec
+    from cavp_tpu_torch.audio.mel import mel_spectrogram, periodic_hann, preprocess_audio
+    from cavp_tpu_torch.ops.kernels.mel import (
+        _device_bases, fused_log_mel, fused_log_mel_reference, log_mel_float64, mel_plan)
 
     rng = np.random.RandomState(SEED + 20)
     L, T = config.audio_samples, config.mel_frames
+    rows = EVAL_BATCH * config.in_plane
 
-    def wave(rows):
-        return torch.from_numpy(((rng.rand(rows, L) - 0.5) * 0.2).astype(np.float32)).to(device)
+    def wave(n):
+        return torch.from_numpy(((rng.rand(n, L) - 0.5) * 0.2).astype(np.float32)).to(device)
 
+    def unfused(w, frames, f_min=125.0, f_max=3800.0):
+        if (f_min, f_max) == (125.0, 3800.0):
+            return preprocess_audio(w[:, None], n_frames=frames)[:, 0]
+        mel = mel_spectrogram(w, f_min=f_min, f_max=f_max)[:, :, :frames]
+        return normalize_spec(db_from_amp(mel.transpose(-1, -2)), -100.0, 100.0)
+
+    # a 1 kHz tone at 0.5 over noise at 1e-4: 100 dB between the tone's bins
+    # and the floor, and leakage bands near the 1e-5 clamp
+    tone = (0.5 * np.sin(2 * np.pi * 1000.0 * np.arange(L) / 16000.0)[None]
+            + 1e-4 * rng.randn(rows, L)).astype(np.float32)
+    band = dict(f_min=60.0, f_max=7000.0)
+    # 3 rows x 101 frames (every frame the waveform has): the last tile is
+    # ragged and the last frames reflect at the end
+    cases = (("eval", wave(rows), T, {}), ("bucket8", wave(8 * config.in_plane), T, {}),
+             ("ragged", wave(3), 1 + L // 160, {}),
+             ("tone", torch.from_numpy(tone).to(device), T, {}),
+             ("band 60-7000 Hz", wave(rows), T, band))
     results = {}
-    # 3 rows x 101 frames (every frame the waveform has): 303 is no multiple
-    # of the kernel's 16-frame tile, and the last frames reflect at the end
-    for name, rows, frames in (("eval", EVAL_BATCH * config.in_plane, T),
-                               ("bucket8", 8 * config.in_plane, T), ("ragged", 3, 1 + L // 160)):
-        w = wave(rows)
-        got = fused_log_mel(w, frames)
-        ref = fused_log_mel_reference(w, frames)
-        unfused = preprocess_audio(w[:, None], n_frames=frames)[:, 0]
+    for name, w, frames, kw in cases:
+        got = fused_log_mel(w, frames, **kw)
+        again = fused_log_mel(w, frames, **kw)
+        ref = fused_log_mel_reference(w, frames, **kw)
+        unf = unfused(w, frames, **kw)
+        f64 = log_mel_float64(w, frames, **kw)
         torch.cuda.synchronize()
-        require(got.shape == (rows, frames, 64) and got.dtype == torch.float32,
+        require(got.shape == (w.shape[0], frames, 64) and got.dtype == torch.float32,
                 f"mel kernel output {got.shape} {got.dtype}")
         require(bool(torch.isfinite(got).all()), "non-finite mel kernel output")
-        e_ref, e_unf = float((got - ref).abs().max()), float((got - unfused).abs().max())
-        ok = e_ref <= MEL_ATOL and e_unf <= MEL_ATOL
-        print(f"[mel-kernel] {name} [{rows}, {L}] -> {frames} frames: max_abs_err on the "
-              f"[-1, 1] scale {e_ref:.3e} against plain, {e_unf:.3e} against the unfused "
-              f"preprocess_audio (limit {MEL_ATOL}: {'ok' if ok else 'FAIL'}); output range "
+        dist = lambda a: float((a.double() - f64).abs().max())
+        e_k, e_p, e_u = dist(got), dist(ref), dist(unf)
+        limit = max(MEL_ATOL, 2 * e_p + 1e-7)
+        same = bool(torch.equal(got, again))
+        ok = e_k <= limit and same
+        print(f"[mel-kernel] {name} [{w.shape[0]}, {L}] -> {frames} frames: max_abs_err on the "
+              f"[-1, 1] scale against float64: kernel {e_k:.3e}, plain {e_p:.3e}, unfused "
+              f"{e_u:.3e} (kernel limit {limit:.3e}: {'ok' if ok else 'FAIL'}); kernel against "
+              f"plain {float((got - ref).abs().max()):.3e}, against unfused "
+              f"{float((got - unf).abs().max()):.3e}; two launches "
+              f"{'bit-equal' if same else 'DIFFER'}; output range "
               f"{float(got.min()):.3f} .. {float(got.max()):.3f}")
         require(ok, f"the mel kernel disagrees ({name})")
-        results[name] = max(e_ref, e_unf)
+        results[name] = float((got - ref).abs().max())
 
-    rows = EVAL_BATCH * config.in_plane
     w = wave(rows)
+    _, _, fb = _device_bases(125.0, 3800.0, device)
+    hann = torch.from_numpy(periodic_hann(400).astype(np.float32)).to(device)
+
+    def fft_composition():  # a yardstick: the library's FFT, power, filterbank, log
+        pad = torch.nn.functional.pad(w[:, None], (256, 256), mode="reflect")[:, 0]
+        spec = torch.fft.rfft(pad.unfold(-1, 512, 160)[:, :T, 56:456] * hann, n=512)
+        mel = (spec.real.square() + spec.imag.square()) @ fb
+        return normalize_spec(db_from_amp(mel), -100.0, 100.0)
+
+    e_fft = float((fft_composition().double() - log_mel_float64(w, T)).abs().max())
     launches = fused_log_mel.launches
     ms = interleaved_ms({
         "kernel": lambda: fused_log_mel(w, T),
         "plain": lambda: fused_log_mel_reference(w, T),
-        "library": lambda: preprocess_audio(w[:, None], n_frames=T)}, 10)
+        "library": lambda: preprocess_audio(w[:, None], n_frames=T),
+        "fft": fft_composition}, 10)
+    b2b = {"kernel": back_to_back_ms(lambda: fused_log_mel(w, T)),
+           "fft": back_to_back_ms(fft_composition)}
     fused_log_mel.launches = launches
     frames = rows * T
-    flops = frames * 2 * (2 * 400 * 257 + 257 * 64)
-    nbytes = 4 * (rows * L + frames * 64 + 2 * 400 * 257 + 257 * 64)
+    plan = mel_plan(125.0, 3800.0)
+    cols = plan.chunks * plan.chunk_cols
+    # the kernel: three TF32 products over the plan's columns; the bytes are
+    # the waveform, the output and the TF32 bases (hi and lo)
+    flops = 3 * 2 * frames * 400 * cols
+    nbytes = 4 * (rows * L + frames * 64 + 2 * 400 * cols)
+    # the old design's work: the dense float32 DFT of 257 bins and mel
+    old_flops = frames * 2 * (2 * 400 * 257 + 257 * 64)
+    old_bytes = 4 * (rows * L + frames * 64 + 2 * 400 * 257 + 257 * 64)
     results.update(ms)
-    results["bound"] = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
-    print(f"[mel-kernel] time at [{rows}, {L}] -> {T} frames, float32: kernel "
-          f"{ms['kernel']:.3f} ms, plain {ms['plain']:.3f} ms, unfused preprocess_audio "
-          f"{ms['library']:.3f} ms; bound {results['bound'][0]:.4f} ms by "
-          f"{results['bound'][1]} (67 TFLOP/s float32, 3.35 TB/s)")
+    results["kernel_b2b"], results["fft_b2b"] = b2b["kernel"], b2b["fft"]
+    results["bound"] = bound_ms(flops, nbytes, PEAK_TF32_FLOPS)
+    old = bound_ms(old_flops, old_bytes, PEAK_F32_FLOPS)
+    print(f"[mel-kernel] time at [{rows}, {L}] -> {T} frames, float32, one call at a time: "
+          f"kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, unfused preprocess_audio "
+          f"{ms['library']:.4f} ms, composition of torch.fft.rfft + power + filterbank + log "
+          f"{ms['fft']:.4f} ms (its max_abs_err against float64 {e_fft:.3e}); in a row of "
+          f"launches: kernel {b2b['kernel']:.4f} ms, the composition {b2b['fft']:.4f} ms; bound "
+          f"{results['bound'][0]:.4f} ms by {results['bound'][1]} ({flops / 1e9:.2f} GFLOP of "
+          f"TF32 products over {cols} columns at 495 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 "
+          f"TB/s); the dense float32 design's bound {old[0]:.4f} ms by {old[1]} (67 TFLOP/s)")
     return results
 
 
@@ -1257,7 +1338,8 @@ def main() -> int:
          "launches": eval_launches["mel"], "max_abs_err": mres["eval"],
          "ms": mres["kernel"], "plain_ms": mres["plain"],
          "bound_ms": mres["bound"][0], "bound_by": mres["bound"][1],
-         "library_ms": mres["library"]},
+         "library_ms": mres["library"], "fft_composition_ms": mres["fft"],
+         "ms_in_a_row": mres["kernel_b2b"]},
         {"name": "upsample_argmax", "route": "cuda",
          "source": "cavp_tpu_torch/csrc/upsample_argmax_kernel.cu",
          "replaces": "cavp_tpu/ops/pallas/upsample_argmax_kernel.py:70",

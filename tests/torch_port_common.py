@@ -175,7 +175,7 @@ def _wait_for(path, pid, timeout=1500):
                         break
             except FileNotFoundError:
                 break
-        time.sleep(2)
+        time.sleep(0.25)
     if not path.is_file():
         log = path.with_suffix(".log")
         raise RuntimeError(f"the background job for {path.name} wrote nothing:\n"
