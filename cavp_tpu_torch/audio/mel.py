@@ -76,6 +76,16 @@ def _mel_operators(n_fft: int, win_length: int, n_mels: int, f_min: float,
             fb.astype(np.float32))
 
 
+@functools.lru_cache(maxsize=None)
+def _mel_operators_on(device: torch.device, *args) -> tuple:
+    """:func:`_mel_operators` as tensors on ``device``, uploaded once: a
+    copy from pageable host memory to the card on every call would make
+    the host wait for the device each time. Made outside inference mode,
+    so the train step may use them too."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device) for a in _mel_operators(*args))
+
+
 def mel_spectrogram(wave: torch.Tensor, *, n_fft: int = 512,
                     win_length: int = 400, hop_length: int = 160,
                     n_mels: int = 64, f_min: float = 125.0,
@@ -84,8 +94,7 @@ def mel_spectrogram(wave: torch.Tensor, *, n_fft: int = 512,
     pad = n_fft // 2
     x = F.pad(wave.float().unsqueeze(1), (pad, pad), mode="reflect").squeeze(1)
     frames = x.unfold(-1, n_fft, hop_length)  # [R, T, n_fft]
-    wcos, wsin, fb = (torch.from_numpy(a).to(wave.device) for a in
-                      _mel_operators(n_fft, win_length, n_mels, f_min, f_max))
+    wcos, wsin, fb = _mel_operators_on(wave.device, n_fft, win_length, n_mels, f_min, f_max)
     re = frames @ wcos
     im = frames @ wsin
     mel = (re * re + im * im) @ fb  # [R, T, n_mels]

@@ -2,13 +2,16 @@
 
 Mirrors ``cavp_tpu/config/setups.py``: the same field names, defaults
 and ``get_config`` dispatch, cut to what the eval, serving and train
-steps use. The data roots, the logging fields and the TPU-only knobs
-come with the PRs that port their code.
+steps and the evaluation entry point (``cavp_tpu_torch.test_avs_semantic``)
+use. The logging fields and the TPU-only knobs come with the PRs that port
+their code; the setups the port does not have yet raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
 from typing import List
 
@@ -30,6 +33,10 @@ class Config:
     audio_len: float = 1.0
     spec_min: float = -100.0
     spec_max: float = 100.0
+
+    # --- data roots ---
+    root_dataset_dir: str = "../audio_visual"  # holds avsbench_semantic/
+    dataset_name: str = "avsbench_data_single_yh/"
 
     # --- model ---
     num_classes: int = 71
@@ -59,7 +66,9 @@ class Config:
     # --- runtime ---
     gpus: int = 1   # data-parallel workers; scales the sound bank's depth
     nodes: int = 1
+    num_workers: int = 16  # loader threads
     avsbench_split: str = "all"
+    resize_flag: bool = False  # resize frames and masks to image_height x width
     # exact audio-tower dedup on the train path (VGG tower, no BatchNorm):
     # the tower runs on B + floor(B*ow_rate) clips and the shuffled half
     # is a feature gather
@@ -82,6 +91,14 @@ class Config:
     # eval, with ``use_pallas_fusion``: the logit upsample and the argmax
     # as one kernel (``ops/kernels/upsample_argmax.py``)
     use_pallas_argmax: bool = False
+    # drop the padding frames (v1 videos fill 5 of 10 slots) from the eval
+    # batches and repack them densely: the same metric sums, fewer steps
+    eval_dense_pack: bool = True
+    ckpt_path: str = ""  # the .pth to evaluate
+
+    @property
+    def data_path(self) -> str:
+        return os.path.join(self.root_dataset_dir, self.dataset_name)
 
     @property
     def mel_frames(self) -> int:
@@ -102,9 +119,16 @@ def _avss() -> Config:
 
 SETUPS = {"avss": _avss}
 
+# the JAX package's other setups, and the ROADMAP.md item that ports each
+NOT_PORTED = {"avss_binary": "Queue 1 item 4", "vpo_ss": "Queue 1 item 5",
+              "vpo_ms": "Queue 1 item 5", "vpo_msmi": "Queue 1 item 5"}
+
 
 def get_config(setup: str) -> Config:
     """Return the base config for a ``--setup`` name."""
+    if setup in NOT_PORTED:
+        raise NotImplementedError(
+            f"setup {setup!r} is not ported yet (ROADMAP.md {NOT_PORTED[setup]})")
     try:
         return SETUPS[setup]()
     except KeyError:

@@ -1,0 +1,137 @@
+"""AVSBench-Semantics dataset, test mode (``cavp_tpu/data/avss.py``).
+
+The reference's ``dataset/avss/avss_datasets.py`` with its
+``visual/visual_dataset.py`` and ``audio/audio_dataset.py``: the rows of
+``metadata.csv`` (uid, label = v1s / v1m / v2, split), each video's
+``frames/%d.jpg`` and ``labels_semantic/%d.png`` padded to 10 slots, the
+per-subset availability flags, one-hot class labels from each mask's
+values, the binary collapse for a resized single-subset split, and the 10 s
+of audio cut into ten 1 s windows. Items are dicts of numpy arrays
+(frames [10, H, W, 3]) for the loader. Train mode comes with
+``run_training`` (ROADMAP.md Queue 1 item 3).
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+from typing import Dict, List
+
+import numpy as np
+
+from cavp_tpu_torch.data.audio_io import load_audio
+from cavp_tpu_torch.data.imageio import open_mask, open_rgb, pil_image
+from cavp_tpu_torch.data.transforms import VisualAugmentation
+
+
+def get_v2_palette(num_cls: int = 71) -> List[int]:
+    """The AVSBench-v2 color palette (visual_dataset.get_v2_pallete:14-39)."""
+    palette = [0] * (num_cls * 3)
+    for j in range(num_cls):
+        lab = j
+        i = 0
+        while lab > 0:
+            palette[j * 3 + 0] |= ((lab >> 0) & 1) << (7 - i)
+            palette[j * 3 + 1] |= ((lab >> 1) & 1) << (7 - i)
+            palette[j * 3 + 2] |= ((lab >> 2) & 1) << (7 - i)
+            i += 1
+            lab >>= 3
+    return palette
+
+
+def availability_flags(subset: str, mode: str):
+    """(frame, mask) availability of the 10 slots (visual_dataset.__getflag:82-95)."""
+    if subset == "v1s":
+        frame = np.array([1, 1, 1, 1, 1, 0, 0, 0, 0, 0], np.float32)
+        if mode == "train":
+            mask = np.array([1, 0, 0, 0, 0, 0, 0, 0, 0, 0], np.float32)
+        else:
+            mask = frame.copy()
+    elif subset == "v1m":
+        frame = np.array([1, 1, 1, 1, 1, 0, 0, 0, 0, 0], np.float32)
+        mask = frame.copy()
+    else:  # v2
+        frame = np.ones(10, np.float32)
+        mask = np.ones(10, np.float32)
+    return frame, mask
+
+
+class AVSSDataset:
+    """The joined visual and audio dataset over ``metadata.csv``."""
+
+    MASK_NUM = 10
+    AUDIO_SECONDS = 10.0
+
+    def __init__(self, config, mode: str):
+        if mode == "train":
+            raise NotImplementedError(
+                "the AVSS train items are not ported yet (ROADMAP.md Queue 1 item 3)")
+        self.config = config
+        self.mode = mode
+        self.dir_base = os.path.join(config.root_dataset_dir, "avsbench_semantic")
+        with open(os.path.join(self.dir_base, "metadata.csv"), newline="") as f:
+            rows = [r for r in csv.DictReader(f) if r["split"] == mode]
+        if config.avsbench_split != "all":
+            rows = [r for r in rows if r["label"] == config.avsbench_split]
+        self.rows = rows
+        self.num_classes = config.num_classes
+        self.transform = VisualAugmentation(
+            image_mean=config.image_mean, image_std=config.image_std,
+            image_width=config.image_width, image_height=config.image_height,
+            mode=mode, resize_flag=config.resize_flag)
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        row = self.rows[idx]
+        subset = row["label"]
+        frame_avail, mask_avail = availability_flags(subset, self.mode)
+
+        vdir = os.path.join(self.dir_base, subset, row["uid"])
+        fn_img = os.path.join(vdir, "frames")
+        fn_label = os.path.join(vdir, "labels_semantic")
+        n_img = sum(f.endswith(".jpg") for f in os.listdir(fn_img))
+        n_mask = sum(f.endswith(".png") for f in os.listdir(fn_label))
+        images = [open_rgb(os.path.join(fn_img, f"{i}.jpg")) for i in range(n_img)]
+        labels = [open_mask(os.path.join(fn_label, f"{i}.png")) for i in range(n_mask)]
+        # a video with fewer masks than frames (or the reverse) pairs its
+        # extra frames with zero images, as the reference pads
+        Image = pil_image()
+        n = max(n_img, n_mask)
+        images += [Image.fromarray(np.zeros_like(np.asarray(images[-1])))] * (n - n_img)
+        labels += [Image.fromarray(np.zeros_like(np.asarray(labels[-1])))] * (n - n_mask)
+        pack = [self.transform(im, lb) for im, lb in zip(images, labels)]
+        image = np.stack([p[0] for p in pack])  # [n, H, W, 3]
+        label = np.stack([p[1] for p in pack])  # [n, H, W]
+        if n < self.MASK_NUM:
+            # the reference pads with zero images, which normalize to
+            # -mean/std, and with zero masks
+            fill = ((0.0 - self.transform.mean) / self.transform.std).astype(np.float32)
+            pad = self.MASK_NUM - n
+            image = np.concatenate([image, np.broadcast_to(fill, (pad,) + image.shape[1:])])
+            label = np.concatenate([label, np.zeros((pad,) + label.shape[1:], label.dtype)])
+
+        # one-hot class labels from each frame's mask values
+        class_label = np.zeros((self.MASK_NUM, self.num_classes), np.int32)
+        for i in range(self.MASK_NUM):
+            u = np.unique(label[i][label[i] != 255])
+            u = u[u < self.num_classes]
+            class_label[i, u] = 1
+
+        # binary collapse of a single-subset split (visual_dataset.py:160-165)
+        if self.config.resize_flag and self.config.avsbench_split != "all":
+            label = np.where((label != 255) & (label != 0), 1, label)
+
+        waveform = load_audio(os.path.join(vdir, "audio.wav"), self.AUDIO_SECONDS)
+        waveform = waveform.reshape(self.MASK_NUM, -1)  # ten 1 s windows
+
+        return {
+            "image": image.astype(np.float32),
+            "waveform": waveform.astype(np.float32),
+            "pix_label": label.astype(np.int32),
+            "img_label": class_label,
+            "name": row["uid"],
+            "frame_available": frame_avail,
+            "mask_available": mask_avail,
+        }

@@ -1,12 +1,75 @@
-"""In-memory synthetic batches with a setup's exact shapes
-(``cavp_tpu/data/synthetic.py`` ``synthetic_train_batch`` and
-``synthetic_eval_batch``), numpy only."""
+"""Synthetic data (``cavp_tpu/data/synthetic.py``): a miniature on-disk
+AVSBench-Semantics tree, so the dataset, the loader and the evaluation
+entry point run on real files, and in-memory batches with a setup's exact
+shapes. The same seeds give the same pixels, waveforms and draws as the
+JAX package's."""
 
 from __future__ import annotations
 
+import os
+import wave as wave_mod
 from typing import Dict, Optional
 
 import numpy as np
+
+from cavp_tpu_torch.data.imageio import write_index_png, write_jpeg
+
+
+def write_wav(path: str, data: np.ndarray, sr: int = 16000):
+    """data: [channels, samples] float32 in [-1, 1] -> 16-bit PCM."""
+    pcm = (np.clip(data, -1, 1) * 32767).astype("<i2")
+    with wave_mod.open(path, "wb") as f:
+        f.setnchannels(data.shape[0])
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes(pcm.T.tobytes())
+
+
+def make_synthetic_avss(root: str, num_videos: int = 4, image_size: int = 64,
+                        num_classes: int = 8, seed: int = 0,
+                        splits=("train", "test")) -> str:
+    """Write a mini ``avsbench_semantic`` tree and its ``metadata.csv``
+    under ``root``; returns the tree's path. Video ``v`` of a split is in
+    subset v1s, v1m, v2 in turn (5, 5 and 10 frames), shows one textured
+    square of class ``1 + v % (num_classes - 1)`` at the center, and sounds
+    a tone of that class. The JAX package's writer without its two
+    training-fixture options (``ambiguous``, ``vary_pos``)."""
+    rng = np.random.RandomState(seed)
+    base = os.path.join(root, "avsbench_semantic")
+    rows = ["split,label,uid,a_obj,s_min,s_sec"]
+    subsets = ["v1s", "v1m", "v2"]
+    for split in splits:
+        for v in range(num_videos):
+            subset = subsets[v % 3]
+            uid = f"{split}_vid{v}"
+            vdir = os.path.join(base, subset, uid)
+            os.makedirs(os.path.join(vdir, "frames"), exist_ok=True)
+            os.makedirs(os.path.join(vdir, "labels_semantic"), exist_ok=True)
+            n_frames = 10 if subset == "v2" else 5
+            cls = 1 + v % (num_classes - 1)
+            s = image_size // 4
+            y0 = x0 = s
+            tint = np.array([(cls * 53) % 200 + 55, (cls * 101) % 200 + 55,
+                             (cls * 179) % 200 + 55], np.uint8)
+            for i in range(n_frames):
+                img = rng.randint(0, 255, (image_size, image_size, 3), dtype=np.uint8)
+                # the sounding object: a tinted textured square where the mask is
+                region = img[y0:y0 + 2 * s, x0:x0 + 2 * s].astype(np.int32)
+                img[y0:y0 + 2 * s, x0:x0 + 2 * s] = (region // 4 + tint).clip(0, 255).astype(
+                    np.uint8)
+                write_jpeg(os.path.join(vdir, "frames", f"{i}.jpg"), img)
+            for i in range(n_frames):
+                mask = np.zeros((image_size, image_size), np.uint8)
+                mask[y0:y0 + 2 * s, x0:x0 + 2 * s] = cls
+                write_index_png(os.path.join(vdir, "labels_semantic", f"{i}.png"), mask)
+            t = np.linspace(0, 10, 160000, endpoint=False)
+            tone = 0.3 * np.sin(2 * np.pi * (200 + 50 * cls) * t)
+            write_wav(os.path.join(vdir, "audio.wav"), tone[None].astype(np.float32))
+            rows.append(f"{split},{subset},{uid},obj{cls},0,0")
+    os.makedirs(base, exist_ok=True)
+    with open(os.path.join(base, "metadata.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return base
 
 
 def synthetic_train_batch(config, batch_size: Optional[int] = None, seed: int = 0

@@ -39,6 +39,7 @@ import torch
 from cavp_tpu_torch.audio.mel import preprocess_audio as _preprocess_nchw
 from cavp_tpu_torch.metrics import (
     MIoUState,
+    counts,
     fg_init,
     fg_result,
     fg_update_weighted,
@@ -260,7 +261,7 @@ def _multi_source_flag(pix_label: torch.Tensor, thresh: int = 100) -> torch.Tens
     n = pix_label.shape[0]
     v = pix_label.reshape(n, -1).long().clamp(0, 255)
     idx = v + 256 * torch.arange(n, device=v.device).unsqueeze(1)
-    hist = torch.bincount(idx.reshape(-1), minlength=256 * n).reshape(n, 256)
+    hist = counts(idx.reshape(-1), 256 * n).reshape(n, 256)
     return (hist > thresh).sum(1) > 2
 
 

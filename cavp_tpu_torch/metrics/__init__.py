@@ -1,12 +1,13 @@
 from cavp_tpu_torch.metrics.fg_detect import fg_init, fg_result, fg_update_weighted
 from cavp_tpu_torch.metrics.miou import (
     MIoUState,
+    counts,
     miou_init,
     miou_result,
     miou_update_weighted,
 )
 
 __all__ = [
-    "MIoUState", "miou_init", "miou_update_weighted", "miou_result",
+    "MIoUState", "counts", "miou_init", "miou_update_weighted", "miou_result",
     "fg_init", "fg_update_weighted", "fg_result",
 ]

@@ -1,7 +1,8 @@
 """Foreground detection metrics (FDR / F1 / F0.3) from a confusion matrix
 (``cavp_tpu/metrics/fg_detect.py``, reference ``eval_utils.py:100-156``).
 
-Per-frame confusions come from one ``torch.bincount`` (the reference's
+Per-frame confusions come from one fixed-size scatter-add
+(:func:`cavp_tpu_torch.metrics.miou.counts`, the reference's
 numpy.bincount form) instead of the TPU's one-hot matmul; float64
 accumulators keep the counts exact.
 """
@@ -13,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from cavp_tpu_torch.device import resolve_device
+from cavp_tpu_torch.metrics.miou import counts
 
 
 def fg_init(num_classes: int, device=None) -> torch.Tensor:
@@ -36,8 +38,8 @@ def fg_update_weighted(confusions: Tuple[torch.Tensor, ...], pred: torch.Tensor,
     batch = tf.shape[0]
     keep = (tf >= 0) & (tf < n) & (tf != ignore_index) & (pf >= 0) & (pf < n)
     frame = torch.arange(batch, device=tf.device).unsqueeze(1).expand_as(tf)
-    idx = (frame * n + tf) * n + pf
-    conf_f = torch.bincount(idx[keep], minlength=batch * n * n)
+    idx = torch.where(keep, (frame * n + tf) * n + pf, 0)
+    conf_f = counts(idx.reshape(-1), batch * n * n, keep.reshape(-1).long())
     conf_f = conf_f.reshape(batch, n, n).double()
 
     out = []

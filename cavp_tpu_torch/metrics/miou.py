@@ -2,10 +2,11 @@
 
 The reference's +1 class shift, ignore -> -1 handling and
 histogram-based intersection/union, as a functional accumulator carried
-on the device. Per-frame histograms come from one ``torch.bincount``
-over frame-offset values (the TPU's compare+reduce form avoided
-scatters; the GPU has fast atomics). Accumulators are float64, so counts
-stay exact integers far beyond float32's 2**24.
+on the device. Per-frame histograms come from one scatter-add of ones
+over frame-offset values into a histogram of fixed size (the TPU's
+compare+reduce form avoided scatters; the GPU has fast atomics).
+Accumulators are float64, so counts stay exact integers far beyond
+float32's 2**24.
 """
 
 from __future__ import annotations
@@ -32,13 +33,24 @@ def miou_init(num_classes: int, device=None) -> MIoUState:
     return MIoUState(z, z.clone(), s, s.clone())
 
 
+def counts(idx: torch.Tensor, size: int, weight: Optional[torch.Tensor] = None
+           ) -> torch.Tensor:
+    """int64 [size]: how often each value of ``idx`` (int64, all in
+    [0, size)) occurs, each occurrence counted ``weight`` times (default 1):
+    ``torch.bincount(idx, weight, minlength=size)``. ``torch.bincount``
+    sizes its output from the data's largest value, which on the card
+    makes the host wait for the device; this fixed-size scatter does not."""
+    src = torch.ones_like(idx) if weight is None else weight
+    return torch.zeros(size, dtype=torch.int64, device=idx.device).scatter_add_(0, idx, src)
+
+
 def frame_hist(x: torch.Tensor, num_classes: int) -> torch.Tensor:
     """Per-frame counts of the values 1..num_classes: x [B, P] int ->
     [B, num_classes] float64. Other values are not counted."""
     B = x.shape[0]
     v = torch.where((x >= 1) & (x <= num_classes), x, torch.zeros_like(x))
     idx = v + (num_classes + 1) * torch.arange(B, device=x.device).unsqueeze(1)
-    h = torch.bincount(idx.reshape(-1), minlength=B * (num_classes + 1))
+    h = counts(idx.reshape(-1), B * (num_classes + 1))
     return h.reshape(B, num_classes + 1)[:, 1:].double()
 
 

@@ -106,9 +106,11 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     Conv and Linear weights and biases draw from U(-1/sqrt(fan_in),
     1/sqrt(fan_in)) — torch's kaiming_uniform(a=sqrt(5)) bound —
     BatchNorm and LayerNorm affines are ones/zeros, running stats
-    zeros/ones, and every other parameter (the unused positional
-    embeddings) zeros. Draws come from ``generator`` in module order, so
-    one seed gives one model on any device.
+    zeros/ones and the step count zero, and every other parameter (the
+    unused positional embeddings) zeros: every tensor of the module, so
+    the module may have been built without storage (``to_empty``). Draws
+    come from ``generator`` in module order, so one seed gives one model on
+    any device.
     """
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -124,6 +126,7 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             if isinstance(m, nn.BatchNorm2d):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
+                m.num_batches_tracked.zero_()
         else:
             for p in m.parameters(recurse=False):
                 p.zero_()

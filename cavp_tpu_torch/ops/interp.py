@@ -76,14 +76,25 @@ def axis_taps(in_size: int, out_size: int, align_corners: bool, dtype: torch.dty
     return lo, hi, m[rows, lo], w_hi
 
 
+@functools.lru_cache(maxsize=None)
+def _interp_matrix_on(in_size: int, out_size: int, align_corners: bool,
+                      device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`interp_matrix` rounded to ``dtype`` on ``device``, uploaded
+    once (a copy to the card on every call makes the host wait), outside
+    inference mode so that any caller may use it."""
+    with torch.inference_mode(False):
+        m = torch.from_numpy(interp_matrix(in_size, out_size, align_corners))
+        return m.to(device, dtype)
+
+
 def _interp_axis(x: torch.Tensor, axis: int, out_size: int, align_corners: bool
                  ) -> torch.Tensor:
     """One axis as a matrix product against :func:`interp_matrix` rounded
     to x's dtype, as the JAX package does it; the product rounds once."""
-    m = torch.from_numpy(interp_matrix(x.shape[axis], out_size, align_corners))
+    m = _interp_matrix_on(x.shape[axis], out_size, align_corners, x.device, x.dtype)
     shape = x.shape
     flat = x.reshape(math.prod(shape[:axis]), shape[axis], math.prod(shape[axis + 1:]))
-    out = torch.matmul(m.to(x.device, x.dtype), flat)
+    out = torch.matmul(m, flat)
     return out.reshape(*shape[:axis], out_size, *shape[axis + 1:])
 
 

@@ -63,7 +63,24 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
     (layer1 once for each bottleneck), that the masks agree with the all-plain arm, that the argmax kernel
     leaves the fusion-kernel arm's masks and accumulators bit-equal, and
     prints frames/s of the all-kernels, the fusion-kernel and the plain
-    arm.
+    arm;
+12. runs the evaluation entry point ``python -m
+    cavp_tpu_torch.test_avs_semantic`` on an AVSBench-Semantics test split
+    written to disk (24 videos, 8 each of v1s, v1m and v2: 160 valid frames
+    at 224x224, 71 classes; the masks rewritten with the plain path's
+    confident predictions) and the seeded model saved as a reference
+    ``.pth``, with every eval kernel flag
+    on and with every flag off: once each as its own process (exit 0, both
+    metric lines), then twice each in this process, where it checks that the
+    strict load reports nothing missing or unexpected, that the kernel arm
+    launched each of the four eval kernels on every eval step (layer1 once a
+    bottleneck) and the plain arm none, that ``run_validation`` made one host
+    sync (``torch.cuda.set_sync_debug_mode``), that the masks its eval steps
+    predicted in the kernel arm agree with the plain arm's on 99.5% of the
+    pixels (``VALIDATION_MASK_AGREEMENT``), and that the two arms' ten
+    metrics agree within phase 11's mel-arm limit; it prints frames/s
+    (decode included), the share of the loop spent waiting on the loader
+    and the decoder (PIL) with its distance from PIL's decode.
 
 The weights are random, drawn from a seed, and made non-degenerate (see
 ``random_weights``) so the comparisons are not empty. The numbers printed
@@ -127,6 +144,10 @@ MEL_ATOL = 2e-6
 # same, and the metrics move in the third decimal
 MEL_MASK_AGREEMENT = 0.995
 MEL_METRIC_ATOL = 5e-3
+# phase 12, the masks of every eval step of the entry point with every
+# kernel flag against every flag off: phase 11's mel-arm limit, the
+# stricter of its two (its all-flags arm against plain read 99.814%)
+VALIDATION_MASK_AGREEMENT = MEL_MASK_AGREEMENT
 # layer1, float32 kernel against plain (TF32 off): other summation orders
 L1_F32_TOL = dict(rtol=1e-5, atol=1e-5)
 # layer1, bf16: both round at the same points and differ where another
@@ -1231,6 +1252,271 @@ def all_flags_phase(config, model, state_dict, device) -> dict:
     return launches
 
 
+def profile_validation(entry, argv, device, unprofiled_s: float) -> None:
+    """``--profile``: ``torch.profiler`` over one ``run_validation`` of the
+    entry point (the loop only): host time by operation, device time, and
+    the device's idle share of the loop, against the profiled loop and
+    against ``unprofiled_s``, the same loop's wall time without it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    real_run = entry.run_validation
+    wall = {}
+
+    def profiled_run(*a, **kw):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = real_run(*a, **kw)
+            torch.cuda.synchronize()
+            wall["s"] = time.perf_counter() - t0
+        wall["prof"] = prof
+        return res
+
+    entry.run_validation = profiled_run
+    try:
+        entry.main(argv, device=device)
+    finally:
+        entry.run_validation = real_run
+    events = wall["prof"].key_averages()
+    busy = sum((getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0)) / 1e6
+               for e in events if getattr(e, "device_type", None) == DeviceType.CUDA)
+    print(f"[validation-profile] run_validation, every kernel flag: {1e3 * busy:.1f} ms of "
+          f"device time in a loop of {1e3 * wall['s']:.1f} ms profiled, "
+          f"{1e3 * unprofiled_s:.1f} ms unprofiled: the device idles "
+          f"{100 * (1 - busy / wall['s']):.1f}% / {100 * (1 - busy / unprofiled_s):.1f}%")
+    print(events.table(sort_by="self_cpu_time_total", row_limit=25, max_name_column_width=60))
+
+
+VALIDATION_VIDEOS = 24  # 8 each of v1s, v1m, v2: 160 valid frames in 240 slots
+METRICS = ("miou", "acc", "fdr", "f_1", "f_0.3", "miou_ms", "acc_ms", "fdr_ms", "f_1_ms",
+           "f_0.3_ms")
+
+
+# phase 12 labels each pixel with the plain path's class, but leaves this
+# share of the pixels, those where the top logit leads the second by the
+# least, unlabeled (255): there the arms' bf16 summation orders can flip
+# the argmax
+UNLABELED_SHARE = 0.05
+
+
+def relabel_with_the_model(model, config, dataset, base: Path, device) -> float:
+    """Rewrite every mask of the synthetic split with the plain path's
+    predictions, the least confident ``UNLABELED_SHARE`` of the pixels
+    unlabeled: the seeded random model predicts none of the writer's
+    classes, so every metric would be 0 in both arms. Returns the margin
+    below which pixels are unlabeled."""
+    import numpy as np
+    import torch
+
+    from cavp_tpu_torch.data.imageio import write_index_png
+    from cavp_tpu_torch.engine.loops import make_inference_forward, preprocess_audio
+
+    fwd = make_inference_forward(model, config.replace(**dict.fromkeys(ALL_FLAGS, False)))
+    labels, margins = [], []
+    for i in range(len(dataset)):
+        item = dataset[i]
+        n = int(item["mask_available"].sum())
+        image = torch.from_numpy(item["image"][:n]).to(device)
+        wave = torch.from_numpy(item["waveform"][:n, None]).to(device)
+        top2 = fwd(image, preprocess_audio(wave, n_frames=config.mel_frames)).float().topk(2, -1)
+        labels.append(top2.indices[..., 0].to(torch.uint8).cpu().numpy())
+        margins.append((top2.values[..., 0] - top2.values[..., 1]).cpu().numpy())
+    cut = float(np.quantile(np.concatenate([m.ravel() for m in margins]), UNLABELED_SHARE))
+    for row, label, margin in zip(dataset.rows, labels, margins):
+        label[margin < cut] = 255
+        for f in range(len(label)):
+            write_index_png(str(base / row["label"] / row["uid"] / "labels_semantic" / f"{f}.png"),
+                            label[f])
+    return cut
+
+
+def validation_phase(config, model, state_dict, device, repo: Path,
+                     profile: bool = False) -> dict:
+    """Phase 12: the evaluation entry point, ``python -m
+    cavp_tpu_torch.test_avs_semantic``, on an AVSBench-Semantics test split
+    written to disk (224x224 frames, 71 classes, masks from the model's
+    confident predictions) and the seeded model saved as a reference
+    ``.pth``, with every eval kernel flag on and with every
+    flag off: twice as a user runs it (a process each), then in this
+    process (plain, kernels, kernels, plain) for the launch counts, the
+    masks its eval steps predict, the metrics, frames/s and the host syncs.
+    Returns the warm runs' numbers."""
+    import shutil
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from cavp_tpu_torch import test_avs_semantic
+    from cavp_tpu_torch.config import load_args_and_config
+    from cavp_tpu_torch.data.avss import AVSSDataset
+    from cavp_tpu_torch.data.imageio import decoder_name, open_rgb
+    from cavp_tpu_torch.data.synthetic import make_synthetic_avss
+    from cavp_tpu_torch.engine import loops
+    from cavp_tpu_torch.ops.kernels.fusion import fused_visual_fusion
+    from cavp_tpu_torch.ops.kernels.layer1 import fused_layer1
+    from cavp_tpu_torch.ops.kernels.mel import fused_log_mel
+    from cavp_tpu_torch.ops.kernels.upsample_argmax import upsample_argmax
+
+    wrappers = {"mel": fused_log_mel, "layer1": fused_layer1, "fusion": fused_visual_fusion,
+                "argmax": upsample_argmax}
+
+    root = repo / "build" / "chip_smoke_validation"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    base = Path(make_synthetic_avss(str(root), num_videos=VALIDATION_VIDEOS,
+                                    image_size=config.image_height,
+                                    num_classes=config.num_classes, splits=("test",)))
+    pth = root / "avss_224.pth"
+    torch.save({"model": state_dict}, pth)
+    argv = ["--setup", "avss", "--root_dataset_dir", str(root), "--ckpt_path", str(pth)]
+    arms = {"kernels": argv + [f"--{f}" for f in ALL_FLAGS], "plain": argv}
+    cfg = load_args_and_config(arms["kernels"])
+    require(cfg.num_classes == config.num_classes and cfg.compute_dtype == "bfloat16"
+            and all(getattr(cfg, f) for f in ALL_FLAGS), f"entry point config {cfg}")
+    cut = relabel_with_the_model(model, config, AVSSDataset(cfg, "test"), base, device)
+    print(f"[validation] wrote {VALIDATION_VIDEOS} test videos at {config.image_height}x"
+          f"{config.image_width} and {pth.name} ({pth.stat().st_size / 1e6:.0f} MB) in "
+          f"{time.perf_counter() - t0:.1f} s; the masks are the plain path's predictions, "
+          f"unlabeled where the top logit leads by less than {cut:.4f} "
+          f"({100 * UNLABELED_SHARE:.0f}% of the pixels)")
+    item = AVSSDataset(cfg, "test")[2]  # a v2 video: 10 frames
+
+    # the decoder: PIL, the JAX package's; the frames are its decode
+    frame = base / "v2" / "test_vid2" / "frames" / "0.jpg"
+    ref = (np.asarray(open_rgb(str(frame)), np.float32) / 255.0
+           - np.float32(cfg.image_mean)) / np.float32(cfg.image_std)
+    decode_err = float(np.abs(item["image"][0] - ref).max())
+    require(decode_err == 0.0, f"frame differs from PIL's decode by {decode_err}")
+    print(f"[validation] decoder {decoder_name()} (the JAX package's); frames equal to "
+          f"PIL's decode, largest difference {decode_err} (0 levels of 255)")
+
+    # as a user runs it, one process each
+    for name, args in arms.items():
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "cavp_tpu_torch.test_avs_semantic", *args],
+                             cwd=repo, capture_output=True, text=True, timeout=600)
+        lines = [ln.split(" | INFO | ")[-1] for ln in out.stderr.splitlines()
+                 if "|ALL|" in ln or "|MS|" in ln]
+        require(out.returncode == 0 and len(lines) == 2,
+                f"{name}: exit {out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+        print(f"[validation] python -m cavp_tpu_torch.test_avs_semantic ({name}) exit 0 in "
+              f"{time.perf_counter() - t0:.1f} s: {lines[0]} || {lines[1]}")
+
+    # in this process: the launches, the report, the metrics, the syncs
+    reports = []
+    real_load = test_avs_semantic.load_model_variables
+    test_avs_semantic.load_model_variables = lambda *a: reports.append(real_load(*a)) or reports[-1]
+    real_run = test_avs_semantic.run_validation
+    syncs = []
+
+    def counted_run(*a, **kw):
+        # every operation that makes the host wait for the device warns
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res = real_run(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        return res
+
+    # the masks each eval step of the loop predicts, kept on the card
+    real_pred = loops.make_eval_pred_forward
+    masks = []
+
+    def recording_pred_forward(*a, **kw):
+        pred_fn = real_pred(*a, **kw)
+
+        def recorded(image, audio):
+            pred = pred_fn(image, audio)
+            masks[-1].append(pred.clone())
+            return pred
+        return recorded
+
+    test_avs_semantic.run_validation = counted_run
+    loops.make_eval_pred_forward = recording_pred_forward
+    runs = []
+    try:
+        for name in ("plain", "kernels", "kernels", "plain"):
+            for fn in wrappers.values():
+                fn.launches = 0
+            stats = {}
+            masks.append([])
+            res = test_avs_semantic.main(arms[name], device=device, stats=stats)
+            torch.cuda.synchronize()
+            runs.append((name, res, stats, {k: fn.launches for k, fn in wrappers.items()}))
+    finally:
+        test_avs_semantic.load_model_variables = real_load
+        test_avs_semantic.run_validation = real_run
+        loops.make_eval_pred_forward = real_pred
+    for report in reports:
+        require(not report["missing"] and not report["unexpected"],
+                f"the strict load reported {report['missing'][:5]} {report['unexpected'][:5]}")
+    print(f"[validation] strict .pth load: {len(reports[0]['converted'])} tensors, nothing "
+          "missing, nothing unexpected")
+
+    layer1_blocks = 3  # ResNet-50's layer1
+    warm = {}
+    for (name, res, stats, launches), n_sync in zip(runs, syncs):
+        steps = stats["steps"]
+        want = ({"mel": steps, "layer1": layer1_blocks * steps, "fusion": steps,
+                 "argmax": steps} if name == "kernels" else dict.fromkeys(wrappers, 0))
+        require(launches == want, f"{name}: {steps} eval steps launched {launches}")
+        require(stats["frames"] == 20 * VALIDATION_VIDEOS // 3,
+                f"{name}: {stats['frames']} valid frames")
+        require(all(0.0 <= v <= 1.0 for v in res.values() if v == v), f"{name}: {res}")
+        fps = stats["frames"] / stats["wall_s"]
+        wait = stats["loader_wait_s"] / stats["wall_s"]
+        print(f"[validation] {name}: {steps} eval steps of 10 frames launched {launches}; "
+              f"{stats['frames']} frames in {stats['wall_s']:.3f} s, {fps:.1f} frames/s "
+              f"(decode included), loader wait {100 * wait:.1f}% of the loop, "
+              f"{n_sync} host syncs in run_validation")
+        warm[name] = dict(res=res, fps=fps, wait=wait, syncs=n_sync, launches=launches)
+    if profile:
+        profile_validation(test_avs_semantic, arms["kernels"], device,
+                           runs[2][2]["wall_s"])
+    require(warm["kernels"]["syncs"] == 1,
+            f"run_validation with every kernel flag made {warm['kernels']['syncs']} host syncs, "
+            "not one")
+    # the kernel arm's masks against the plain arm's, step by step: both
+    # loops see the same frames in the same order
+    pairs = ((1, 0), (2, 3))
+    agree = []
+    for k, p in pairs:
+        require(len(masks[k]) == len(masks[p]) == runs[k][2]["steps"],
+                f"recorded {len(masks[k])} and {len(masks[p])} steps' masks")
+        mk, mp = torch.cat(masks[k]), torch.cat(masks[p])
+        require(mk.shape == mp.shape == (runs[k][2]["frames"], config.image_height,
+                                         config.image_width) and mk.dtype == torch.int32,
+                f"masks {tuple(mk.shape)} {mk.dtype}")
+        require(len(torch.unique(mp)) > 1, "the plain arm predicted one class everywhere")
+        agree.append(float((mk == mp).double().mean()))
+    same_kernel_runs = all(bool(torch.equal(a, b)) for a, b in zip(masks[1], masks[2]))
+    del masks
+    print(f"[validation] the masks of the kernel arm's eval steps agree with the plain arm's "
+          f"on {100 * agree[0]:.4f}% / {100 * agree[1]:.4f}% of the pixels (limit "
+          f"{100 * VALIDATION_MASK_AGREEMENT}%); the two kernel runs' masks "
+          f"{'bit-equal' if same_kernel_runs else 'not bit-equal'}")
+    require(min(agree) >= VALIDATION_MASK_AGREEMENT,
+            f"the kernel arm's masks agree with the plain arm's on only {min(agree):.4f}")
+    kern, plain = warm["kernels"]["res"], warm["plain"]["res"]
+    require(all((kern[k] == kern[k]) == (plain[k] == plain[k]) for k in METRICS),
+            f"NaN in one arm only: {kern} {plain}")
+    diff = max((abs(kern[k] - plain[k]) for k in METRICS if kern[k] == kern[k]), default=0.0)
+    require(0 < kern["miou"], f"no class found: {kern}")
+    print(f"[validation] every kernel flag against every flag off: the ten metrics within "
+          f"{diff:.2e} (limit {MEL_METRIC_ATOL}, phase 11's for its mel arm); miou "
+          f"{kern['miou']:.6f} / {plain['miou']:.6f}, miou_ms {kern['miou_ms']:.6f} / "
+          f"{plain['miou_ms']:.6f}")
+    require(diff <= MEL_METRIC_ATOL, f"the arms' metrics differ by {diff}")
+    shutil.rmtree(root, ignore_errors=True)
+    return warm
+
+
 def main() -> int:
     try:
         import torch
@@ -1300,6 +1586,13 @@ def main() -> int:
     eval_launches = all_flags_phase(config, model, state_dict, device)
     print(f"[eval] frames/s at batch {EVAL_BATCH}: every kernel flag on {fps['all']:.1f}, "
           f"fusion kernel only {fps['kernel']:.1f}, plain {fps['plain']:.1f}")
+    # 12. the evaluation entry point on files: the counts are read from its runs only
+    val = validation_phase(config, model, state_dict, device, repo,
+                           profile="--profile" in sys.argv[1:])
+    print(f"[validation] frames/s of the entry point, decode included: every kernel flag "
+          f"{val['kernels']['fps']:.1f}, plain {val['plain']['fps']:.1f}; loader wait "
+          f"{100 * val['kernels']['wait']:.1f}% / {100 * val['plain']['wait']:.1f}% of the "
+          f"loop; {card_line()}")
 
     train_source = "cavp_tpu_torch/csrc/fusion_train_kernel.cu"
     print(json.dumps({"kernels": [

@@ -122,7 +122,7 @@ def test_backward_on_cpu_matches_jax_vjp_and_module_autograd(weights, hw):
     def loss(p, v, a):
         return jnp.sum(jax_ft.fusion_train(p, v, a, interpret=True) * jnp.asarray(wsum))
 
-    gp, gv, ga = jax.grad(loss, argnums=(0, 1, 2))(
+    gp, gv, ga = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
         params, jnp.asarray(fea_v), jnp.asarray(fea_a))
     ref = named_tensors_from_jax(jax.tree_util.tree_map(np.asarray, gp))
     ref["fea_v"] = torch.from_numpy(np.array(gv)).reshape(B, -1, C)

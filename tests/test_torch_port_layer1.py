@@ -73,7 +73,8 @@ def _pair(depth, seed=0, hw=(64, 64)):
 @pytest.fixture(scope="module", params=[50, 18])
 def pair(request):
     m, jm, jvars, img = _pair(request.param)
-    stem = np.array(jm.apply(jvars, jnp.asarray(img), False, method=JaxResNet.stem_forward))
+    stem = np.array(jax.jit(lambda v, x: jm.apply(v, x, False, method=JaxResNet.stem_forward))(
+        jvars, jnp.asarray(img)))
     return m, jvars, img, stem
 
 

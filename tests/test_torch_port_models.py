@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from cavp_tpu.engine.convert import export_torch_state_dict
@@ -108,12 +109,12 @@ def test_resnet50_visual_feature(r50):
         x = torch.from_numpy(img).permute(0, 3, 1, 2)
         feats = model.backbone(x)
         fea_v = model.forward_visual_feature(x)
-    ref_feats = jmodel.apply(jvars, jnp.asarray(img), False,
-                             method=lambda m, im, tr: m.backbone(im, tr))
+    ref_feats = jax.jit(lambda v, im: jmodel.apply(
+        v, im, False, method=lambda m, im, tr: m.backbone(im, tr)))(jvars, jnp.asarray(img))
     for got, ref in zip(feats, ref_feats):
         np.testing.assert_allclose(nhwc(got), np.asarray(ref), **TOL)
-    ref = jmodel.apply(jvars, jnp.asarray(img), False,
-                       method="forward_visual_feature")
+    ref = jax.jit(lambda v, im: jmodel.apply(v, im, False, method="forward_visual_feature"))(
+        jvars, jnp.asarray(img))
     assert fea_v.shape == (2, 304, 16, 16)
     # channels_last: the token reshape the fusion kernel reads is a view
     assert fea_v.is_contiguous(memory_format=torch.channels_last)
@@ -130,7 +131,7 @@ def test_resnet50_slice_forward_matches_jax(r50):
     rng = np.random.RandomState(7)
     image = rng.randn(2, 64, 64, 3).astype(np.float32)
     audio = rng.randn(2, 96, 64, 1).astype(np.float32)
-    ref = np.asarray(jax_forward(jmodel, jcfg.replace(use_pallas_fusion=True))(
+    ref = np.asarray(jax.jit(jax_forward(jmodel, jcfg.replace(use_pallas_fusion=True)))(
         jvars, jnp.asarray(image), jnp.asarray(audio)))
     got = make_inference_forward(model, cfg.replace(use_pallas_fusion=True))(
         torch.from_numpy(image), torch.from_numpy(audio))
@@ -148,11 +149,12 @@ def test_deeplabv3plus_head(r50):
         fea = model.segment.forward_feature(
             [torch.from_numpy(f).permute(0, 3, 1, 2) for f in f_list])
         logits = model.segment.upsample(fea)
-    ref = jmodel.apply(jvars, [jnp.asarray(f) for f in f_list], False,
-                       method=lambda m, f, tr: m.segment.forward_feature(f, tr))
+    ref = jax.jit(lambda v, f: jmodel.apply(
+        v, f, False, method=lambda m, f, tr: m.segment.forward_feature(f, tr)))(
+        jvars, [jnp.asarray(f) for f in f_list])
     np.testing.assert_allclose(nhwc(fea), np.asarray(ref), **TOL)
-    ref_logits = jmodel.apply(jvars, ref,
-                              method=lambda m, f: m.segment.upsample(f, False))
+    ref_logits = jax.jit(lambda v, f: jmodel.apply(
+        v, f, method=lambda m, f: m.segment.upsample(f, False)))(jvars, ref)
     np.testing.assert_allclose(nhwc(logits), np.asarray(ref_logits), **TOL)
 
 
@@ -161,7 +163,8 @@ def test_vgg_audio(r50):
     mel = np.random.RandomState(5).randn(2, 96, 64, 1).astype(np.float32)
     with torch.no_grad():
         got = model.forward_audio_feature(torch.from_numpy(mel).permute(0, 3, 1, 2))
-    ref = jmodel.apply(jvars, jnp.asarray(mel), False, method="forward_audio_feature")
+    ref = jax.jit(lambda v, x: jmodel.apply(v, x, False, method="forward_audio_feature"))(
+        jvars, jnp.asarray(mel))
     assert got.shape == (2, 304)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 

@@ -118,7 +118,7 @@ def test_slice_logits_match_jax(small):
     rng = np.random.RandomState(2)
     image = rng.randn(2, 64, 64, 3).astype(np.float32)
     audio = rng.randn(2, 96, 64, 1).astype(np.float32)
-    ref = np.asarray(jax_loops.make_inference_forward(jmodel, jcfg)(
+    ref = np.asarray(jax.jit(jax_loops.make_inference_forward(jmodel, jcfg))(
         jvars, jnp.asarray(image), jnp.asarray(audio)))
     for use_fused in (True, False):
         fwd = loops.make_inference_forward(model, cfg.replace(use_pallas_fusion=use_fused))
@@ -137,7 +137,7 @@ def test_eval_step_matches_jax(small):
     jbatch = jax_synthetic_eval_batch(jcfg, 2, seed=3)
     for k in batch:
         np.testing.assert_array_equal(batch[k], jbatch[k], err_msg=k)
-    ref = jax_loops.make_eval_step(jmodel, jcfg)(
+    ref = jax.jit(jax_loops.make_eval_step(jmodel, jcfg))(
         jvars, jax_loops.eval_metrics_init(jcfg.num_classes),
         {k: jnp.asarray(v) for k, v in jbatch.items()})
     got = loops.make_eval_step(model, cfg)(
@@ -183,7 +183,7 @@ def test_eval_step_with_every_kernel_flag_matches_jax(small, jax_interpret):
     all-flags arm within 2 of its own plain arm."""
     model, cfg, jmodel, jcfg, jvars = small
     batch = synthetic_eval_batch(cfg, 2, seed=3)
-    ref = jax_loops.make_eval_step(jmodel, jcfg.replace(**ALL_FLAGS))(
+    ref = jax.jit(jax_loops.make_eval_step(jmodel, jcfg.replace(**ALL_FLAGS)))(
         jvars, jax_loops.eval_metrics_init(jcfg.num_classes),
         {k: jnp.asarray(v) for k, v in batch.items()})
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -245,7 +245,7 @@ def test_inference_forward_with_the_layer1_flag_matches_plain_and_jax(small, fla
         torch.from_numpy(image), torch.from_numpy(audio))
     np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=2e-4, atol=2e-4)
     assert not torch.equal(got, plain)  # another path did run
-    ref = np.asarray(jax_loops.make_inference_forward(jmodel, jcfg.replace(**on))(
+    ref = np.asarray(jax.jit(jax_loops.make_inference_forward(jmodel, jcfg.replace(**on)))(
         jvars, jnp.asarray(image), jnp.asarray(audio)))
     np.testing.assert_allclose(got.numpy(), ref, **LOGIT_TOL)
 
@@ -364,11 +364,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'cavp_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 39, names\n"
+        "assert len(names) >= 47, names\n"
         "new = ['device', 'engine.optim', 'engine.schedules', 'engine.state', "
         "'losses.ce', 'losses.corocl', 'models.soundbank', 'ops.interp', "
         "'ops.kernels.fusion_train', 'ops.kernels.mel', "
-        "'ops.kernels.upsample_argmax', 'ops.kernels.layer1']\n"
+        "'ops.kernels.upsample_argmax', 'ops.kernels.layer1', 'config.flags', "
+        "'data.audio_io', 'data.imageio', 'data.transforms', 'data.avss', "
+        "'data.pipeline', 'engine.checkpoint', 'test_avs_semantic']\n"
         "missing = [n for n in new if 'cavp_tpu_torch.' + n not in names]\n"
         "assert not missing, missing\n"
         "print(len(names))\n")

@@ -283,7 +283,7 @@ def test_corocl_matches_jax_on_its_draws(seed, max_views, class_slots, kw):
                                num_classes=num_classes, temperature=0.1,
                                max_views=max_views, class_slots=class_slots)
 
-    (ref, raux), (ga, gb) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+    (ref, raux), (ga, gb) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(
         jnp.asarray(em), jnp.asarray(es))
     slots = min(class_slots, num_classes)
     P = em.shape[0] * em.shape[1] * em.shape[2]
