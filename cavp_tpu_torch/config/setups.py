@@ -2,9 +2,10 @@
 
 Mirrors ``cavp_tpu/config/setups.py``: the same field names, defaults
 and ``get_config`` dispatch, cut to what the eval, serving and train
-steps and the evaluation entry point (``cavp_tpu_torch.test_avs_semantic``)
-use. The logging fields and the TPU-only knobs come with the PRs that port
-their code; the setups the port does not have yet raise
+steps, the training entry points (``cavp_tpu_torch.main_avss[_resize]``)
+and the evaluation entry point (``cavp_tpu_torch.test_avs_semantic``) use.
+The TPU-only knobs have no counterpart; the setups the port does not have
+yet raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 
@@ -94,7 +95,14 @@ class Config:
     # drop the padding frames (v1 videos fill 5 of 10 slots) from the eval
     # batches and repack them densely: the same metric sums, fewer steps
     eval_dense_pack: bool = True
-    ckpt_path: str = ""  # the .pth to evaluate
+    ckpt_path: str = ""  # the checkpoint to evaluate, or to resume training from
+
+    # --- the training loop ---
+    ignore_ckpt: bool = False  # write no best_model checkpoint
+    # raise at the first non-finite loss, read where the loop reads the
+    # metrics anyway (the JAX package's jax_debug_nans)
+    debug: bool = False
+    display_iter: int = 1  # steps between two metric reads
 
     @property
     def data_path(self) -> str:

@@ -1,4 +1,4 @@
-"""AVSBench-Semantics dataset, test mode (``cavp_tpu/data/avss.py``).
+"""AVSBench-Semantics dataset (``cavp_tpu/data/avss.py``).
 
 The reference's ``dataset/avss/avss_datasets.py`` with its
 ``visual/visual_dataset.py`` and ``audio/audio_dataset.py``: the rows of
@@ -6,15 +6,18 @@ The reference's ``dataset/avss/avss_datasets.py`` with its
 ``frames/%d.jpg`` and ``labels_semantic/%d.png`` padded to 10 slots, the
 per-subset availability flags, one-hot class labels from each mask's
 values, the binary collapse for a resized single-subset split, and the 10 s
-of audio cut into ten 1 s windows. Items are dicts of numpy arrays
-(frames [10, H, W, 3]) for the loader. Train mode comes with
-``run_training`` (ROADMAP.md Queue 1 item 3).
+of audio cut into ten 1 s windows. Items are dicts of numpy arrays for the
+loader: a test item holds the video's ten slots (frames [10, H, W, 3]); a
+train item holds one available frame, chosen with ``random.choice``
+*before* anything is decoded, augmented, with its 1 s audio window
+(frames [1, H, W, 3]), as the JAX package's train items do.
 """
 
 from __future__ import annotations
 
 import csv
 import os
+import random
 from typing import Dict, List
 
 import numpy as np
@@ -63,9 +66,6 @@ class AVSSDataset:
     AUDIO_SECONDS = 10.0
 
     def __init__(self, config, mode: str):
-        if mode == "train":
-            raise NotImplementedError(
-                "the AVSS train items are not ported yet (ROADMAP.md Queue 1 item 3)")
         self.config = config
         self.mode = mode
         self.dir_base = os.path.join(config.root_dataset_dir, "avsbench_semantic")
@@ -78,10 +78,61 @@ class AVSSDataset:
         self.transform = VisualAugmentation(
             image_mean=config.image_mean, image_std=config.image_std,
             image_width=config.image_width, image_height=config.image_height,
-            mode=mode, resize_flag=config.resize_flag)
+            mode=mode, resize_flag=config.resize_flag, setup=config.setup)
 
     def __len__(self):
         return len(self.rows)
+
+    def _one_hot(self, label: np.ndarray) -> np.ndarray:
+        """[n, classes] int32: the classes each mask holds (255 and values
+        past the last class left out)."""
+        class_label = np.zeros((label.shape[0], self.num_classes), np.int32)
+        for i in range(label.shape[0]):
+            u = np.unique(label[i][label[i] != 255])
+            u = u[u < self.num_classes]
+            class_label[i, u] = 1
+        return class_label
+
+    def _collapse(self, label: np.ndarray) -> np.ndarray:
+        """The binary collapse of a resized single-subset split
+        (visual_dataset.py:160-165)."""
+        if self.config.resize_flag and self.config.avsbench_split != "all":
+            return np.where((label != 255) & (label != 0), 1, label)
+        return label
+
+    def _train_item(self, row, vdir: str, n_img: int, n_mask: int, frame_avail,
+                    mask_avail) -> Dict[str, np.ndarray]:
+        """One random available frame, decoded and augmented alone, with
+        its audio window; availability [1], so ``collate_train_videos``
+        takes it as it is. A frame or mask that is flagged available but
+        missing on disk is a zero image of the last one's size."""
+        avail = np.nonzero((frame_avail > 0) & (mask_avail > 0))[0]
+        sel = int(random.choice(list(avail)))
+        Image = pil_image()
+        if sel < n_img:
+            img = open_rgb(os.path.join(vdir, "frames", f"{sel}.jpg"))
+        else:
+            ref = open_rgb(os.path.join(vdir, "frames", f"{n_img - 1}.jpg"))
+            img = Image.fromarray(np.zeros_like(np.asarray(ref)))
+        if sel < n_mask:
+            lab = open_mask(os.path.join(vdir, "labels_semantic", f"{sel}.png"))
+        else:
+            ref = open_mask(os.path.join(vdir, "labels_semantic", f"{n_mask - 1}.png"))
+            lab = Image.fromarray(np.zeros_like(np.asarray(ref)))
+        image, label = self.transform(img, lab)
+        label = label[None].astype(np.int32)
+        class_label = self._one_hot(label)
+        waveform = load_audio(os.path.join(vdir, "audio.wav"), self.AUDIO_SECONDS)
+        one = np.ones(1, np.float32)
+        return {
+            "image": image[None].astype(np.float32),
+            "waveform": waveform.reshape(self.MASK_NUM, -1)[sel:sel + 1].astype(np.float32),
+            "pix_label": self._collapse(label),
+            "img_label": class_label,
+            "name": row["uid"],
+            "frame_available": one,
+            "mask_available": one.copy(),
+        }
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         row = self.rows[idx]
@@ -93,6 +144,8 @@ class AVSSDataset:
         fn_label = os.path.join(vdir, "labels_semantic")
         n_img = sum(f.endswith(".jpg") for f in os.listdir(fn_img))
         n_mask = sum(f.endswith(".png") for f in os.listdir(fn_label))
+        if self.mode == "train":
+            return self._train_item(row, vdir, n_img, n_mask, frame_avail, mask_avail)
         images = [open_rgb(os.path.join(fn_img, f"{i}.jpg")) for i in range(n_img)]
         labels = [open_mask(os.path.join(fn_label, f"{i}.png")) for i in range(n_mask)]
         # a video with fewer masks than frames (or the reverse) pairs its
@@ -112,16 +165,8 @@ class AVSSDataset:
             image = np.concatenate([image, np.broadcast_to(fill, (pad,) + image.shape[1:])])
             label = np.concatenate([label, np.zeros((pad,) + label.shape[1:], label.dtype)])
 
-        # one-hot class labels from each frame's mask values
-        class_label = np.zeros((self.MASK_NUM, self.num_classes), np.int32)
-        for i in range(self.MASK_NUM):
-            u = np.unique(label[i][label[i] != 255])
-            u = u[u < self.num_classes]
-            class_label[i, u] = 1
-
-        # binary collapse of a single-subset split (visual_dataset.py:160-165)
-        if self.config.resize_flag and self.config.avsbench_split != "all":
-            label = np.where((label != 255) & (label != 0), 1, label)
+        class_label = self._one_hot(label)
+        label = self._collapse(label)
 
         waveform = load_audio(os.path.join(vdir, "audio.wav"), self.AUDIO_SECONDS)
         waveform = waveform.reshape(self.MASK_NUM, -1)  # ten 1 s windows

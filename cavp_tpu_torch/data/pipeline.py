@@ -1,44 +1,70 @@
-"""Host input pipeline: the prefetching loader and the eval batch assembly
+"""Host input pipeline: the prefetching loader and the batch assembly
 (``cavp_tpu/data/pipeline.py``).
 
 A thread pool decodes items ahead of the device step, in place of the
 reference's ``torch.utils.data.DataLoader(num_workers=16, pin_memory)``,
-and collation stacks them into dense numpy batches: padded
-[videos x 10 frames] stacks with a validity mask in place of the
-reference's batch-1 per-frame loop. Batches leave the loader as numpy;
-the runner moves them to the card.
+and collation stacks them into dense
+numpy batches: single-frame train batches (one random available frame a
+video), and padded [videos x 10 frames] eval stacks with a validity mask
+in place of the reference's batch-1 per-frame loop. Batches leave the
+loader as numpy; the runner moves them to the card.
 """
 
 from __future__ import annotations
 
 import queue
+import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterator, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
 
 class DataLoader:
-    """Thread-pool prefetching loader over an indexable dataset, in order.
+    """Thread-pool prefetching loader over an indexable dataset, in one
+    process.
 
-    One process, no shuffling: what the evaluation entry point needs. The
-    JAX package's loader also shuffles and shards across processes for
-    training; those options come with ``run_training`` and DDP
-    (ROADMAP.md Queue 1 items 3 and 8)."""
+    ``shuffle`` draws the order of each epoch from ``random.Random(seed +
+    epoch)`` (``set_epoch`` as the sampler's); ``drop_last`` drops a short
+    last batch. The JAX package's loader also shards across processes;
+    that comes with DDP (ROADMAP.md Queue 1 item 8). Items are made by
+    ``num_workers`` threads: with more than one, the items' own ``random``
+    draws interleave, so only ``num_workers=1`` gives the same batches run
+    after run."""
 
     PREFETCH_BATCHES = 2
 
     def __init__(self, dataset, batch_size: int, collate_fn: Callable,
-                 num_workers: int = 8):
+                 shuffle: bool = False, drop_last: bool = False,
+                 num_workers: int = 8, seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
+        self.shuffle = shuffle
+        self.drop_last = drop_last
         self.num_workers = max(num_workers, 1)
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """``sampler.set_epoch`` (main_avss_resize.py:214)."""
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        n = len(self.dataset)
-        batches = [range(i, min(i + self.batch_size, n)) for i in range(0, n, self.batch_size)]
+        indices = list(range(len(self.dataset)))
+        if self.shuffle:
+            random.Random(self.seed + self.epoch).shuffle(indices)
+        batches = [indices[i:i + self.batch_size]
+                   for i in range(0, len(indices), self.batch_size)]
+        if self.drop_last and batches and len(batches[-1]) < self.batch_size:
+            batches.pop()
 
         out_q: "queue.Queue" = queue.Queue(maxsize=self.PREFETCH_BATCHES)
         stop = threading.Event()
@@ -97,6 +123,26 @@ def collate_stack(items: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarra
         else:
             out[k] = np.stack([it[k] for it in items])
     return out
+
+
+def collate_train_videos(items, rng: Optional[random.Random] = None
+                         ) -> Dict[str, np.ndarray]:
+    """Train collation: one random available frame of each item
+    (trainer_cavp_avss_image.py:157-167) in a single-frame batch. The
+    choice is drawn from ``rng`` (default: the ``random`` module) also when
+    one frame is available, as the JAX package's is."""
+    rng = rng or random
+    images, waves, pix, img_lab, names = [], [], [], [], []
+    for it in items:
+        choices = np.nonzero((it["frame_available"] + it["mask_available"]) == 2)[0]
+        sel = int(rng.choice(list(choices)))
+        images.append(it["image"][sel])
+        waves.append(it["waveform"][sel][None])  # [1, L]
+        pix.append(it["pix_label"][sel])
+        img_lab.append(it["img_label"][sel])
+        names.append(it["name"])
+    return {"image": np.stack(images), "waveform": np.stack(waves),
+            "pix_label": np.stack(pix), "img_label": np.stack(img_lab), "name": names}
 
 
 def collate_eval_videos(items) -> Dict[str, np.ndarray]:

@@ -27,13 +27,18 @@ def write_wav(path: str, data: np.ndarray, sr: int = 16000):
 
 def make_synthetic_avss(root: str, num_videos: int = 4, image_size: int = 64,
                         num_classes: int = 8, seed: int = 0,
-                        splits=("train", "test")) -> str:
+                        splits=("train", "test"), ambiguous: bool = False,
+                        vary_pos: bool = False) -> str:
     """Write a mini ``avsbench_semantic`` tree and its ``metadata.csv``
     under ``root``; returns the tree's path. Video ``v`` of a split is in
     subset v1s, v1m, v2 in turn (5, 5 and 10 frames), shows one textured
     square of class ``1 + v % (num_classes - 1)`` at the center, and sounds
-    a tone of that class. The JAX package's writer without its two
-    training-fixture options (``ambiguous``, ``vary_pos``)."""
+    a tone of that class.
+
+    ``ambiguous``: classes 2k-1 and 2k share one tint while the tone stays
+    per class, so only the audio tells the class. ``vary_pos``: the square
+    sits at a random offset per video instead of the center, so a model
+    must find it, not remember where it is."""
     rng = np.random.RandomState(seed)
     base = os.path.join(root, "avsbench_semantic")
     rows = ["split,label,uid,a_obj,s_min,s_sec"]
@@ -48,9 +53,14 @@ def make_synthetic_avss(root: str, num_videos: int = 4, image_size: int = 64,
             n_frames = 10 if subset == "v2" else 5
             cls = 1 + v % (num_classes - 1)
             s = image_size // 4
-            y0 = x0 = s
-            tint = np.array([(cls * 53) % 200 + 55, (cls * 101) % 200 + 55,
-                             (cls * 179) % 200 + 55], np.uint8)
+            if vary_pos:
+                y0 = int(rng.randint(0, image_size - 2 * s + 1))
+                x0 = int(rng.randint(0, image_size - 2 * s + 1))
+            else:
+                y0 = x0 = s
+            key = (cls + 1) // 2 if ambiguous else cls  # the tint's class
+            tint = np.array([(key * 53) % 200 + 55, (key * 101) % 200 + 55,
+                             (key * 179) % 200 + 55], np.uint8)
             for i in range(n_frames):
                 img = rng.randint(0, 255, (image_size, image_size, 3), dtype=np.uint8)
                 # the sounding object: a tinted textured square where the mask is

@@ -116,7 +116,9 @@ def make_train_step(model, optimizers, config, *, variant: str = "avss") -> Call
         B = image.shape[0]
         dev = image.device
         gen = state.generator
-        ow_flag = torch.as_tensor(epoch, device=dev) >= 1
+        # a bool for an int epoch, a 0-dim tensor for a tensor one: made
+        # without a copy to the device
+        ow_flag = epoch >= 1
 
         # --- shuffle batch construction ---
         if "shuffle_idx" in batch:

@@ -30,6 +30,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from cavp_tpu_torch.metrics.miou import counts as class_counts
 from cavp_tpu_torch.models.layers import acc_dtype
 from cavp_tpu_torch.ops.interp import interpolate_nearest
 
@@ -79,12 +80,14 @@ def corocl_loss(embeds_match: torch.Tensor, gt_match: torch.Tensor,
     bg_mask = gt_m == 0
 
     # eligible classes -> static slots, ascending class id
-    counts = torch.bincount(torch.where(fg_mask, gt_m, num_classes),
-                            minlength=num_classes + 1)[:num_classes]
-    eligible = counts >= max_views
-    eligible[0] = False
-    big = num_classes + 1
+    # a fixed-size count: torch.bincount sizes its output from the data's
+    # largest value, which the host reads from the device
+    counts = class_counts(torch.where(fg_mask, gt_m, num_classes), num_classes + 1)[:num_classes]
     ids = torch.arange(num_classes, device=dev)
+    # the background is never eligible (an item set on the card is a copy
+    # from the host, which waits)
+    eligible = (counts >= max_views) & (ids > 0)
+    big = num_classes + 1
     slot_class = torch.sort(torch.where(eligible, ids, big)).values[:class_slots]
     slot_valid = slot_class < big
     n_eligible = eligible.sum()

@@ -107,11 +107,12 @@ def overwrite_miss_match(if_match: torch.Tensor, shuffle_img_label: torch.Tensor
         scores = torch.rand(B, generator=generator, device=dev)
     scores = scores.to(acc_dtype(scores.dtype))
     scores = torch.where(mismatched, scores, torch.full_like(scores, float("-inf")))
-    kth = torch.sort(scores, descending=True).values[(k - 1).clamp(0, B - 1)]
+    # a gather, not an index by a 0-dim tensor: that reads the index on the host
+    kth = torch.sort(scores, descending=True).values.gather(0, (k - 1).clamp(0, B - 1)[None])
     selected = mismatched & (scores >= kth) & (k > 0) & single
     if filter_bg_only:
         selected = selected & ~(img_label.sum(1) == 1)
-    selected = selected & torch.as_tensor(enabled, dtype=torch.bool, device=dev)
+    selected = selected & enabled
     return OverwriteResult(if_match | selected,
                            torch.where(selected[:, None], img_label, shuffle_img_label),
                            selected, cls)

@@ -20,18 +20,22 @@ import torch
 
 
 @functools.lru_cache(maxsize=None)
-def _nearest_coords(in_size: int, out_size: int) -> np.ndarray:
+def _nearest_coords(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """The source row of every output row on ``device``, uploaded once (a
+    copy to the card on every call makes the host wait), outside inference
+    mode so that any caller may use it."""
     # torch's "nearest": src = floor(dst * in/out), not half-pixel rounding
     idx = np.floor(np.arange(out_size) * (in_size / out_size)).astype(np.int64)
-    return np.minimum(idx, in_size - 1)
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.minimum(idx, in_size - 1)).to(device)
 
 
 def interpolate_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """[..., H, W] -> resized on the last two axes by torch's asymmetric
     nearest rule. Works on integer labels, which ``F.interpolate`` does
     not take on every device."""
-    rows = torch.from_numpy(_nearest_coords(x.shape[-2], size[0])).to(x.device)
-    cols = torch.from_numpy(_nearest_coords(x.shape[-1], size[1])).to(x.device)
+    rows = _nearest_coords(x.shape[-2], size[0], x.device)
+    cols = _nearest_coords(x.shape[-1], size[1], x.device)
     return x.index_select(-2, rows).index_select(-1, cols)
 
 

@@ -13,7 +13,6 @@ split (8 videos a batch under ``--resize_flag``, else 1), and log the
 
 from __future__ import annotations
 
-import logging
 from typing import Dict, Optional, Sequence
 
 from cavp_tpu_torch.config import load_args_and_config
@@ -22,8 +21,7 @@ from cavp_tpu_torch.data.pipeline import DataLoader, collate_eval_videos
 from cavp_tpu_torch.device import resolve_device
 from cavp_tpu_torch.engine.checkpoint import load_model_variables
 from cavp_tpu_torch.engine.runner import build_model, run_validation
-
-logger = logging.getLogger("cavp_tpu_torch")
+from cavp_tpu_torch.utils import log_to_console, logger
 
 
 def main(argv: Optional[Sequence[str]] = None, device=None,
@@ -31,11 +29,7 @@ def main(argv: Optional[Sequence[str]] = None, device=None,
     """Run the evaluation for the command line ``argv`` (default:
     ``sys.argv[1:]``) on ``device`` (default: the CUDA card; raises when
     there is none). ``stats`` is passed on to ``run_validation``."""
-    if not logger.handlers:
-        handler = logging.StreamHandler()
-        handler.setFormatter(logging.Formatter("%(asctime)s | %(levelname)s | %(message)s"))
-        logger.addHandler(handler)
-        logger.setLevel(logging.INFO)
+    log_to_console()
     config = load_args_and_config(argv)
     device = resolve_device(device)
     model = build_model(config, device)

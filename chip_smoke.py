@@ -11,7 +11,8 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
    build time and ptxas's register report;
 3. holds the fusion kernel against its plain PyTorch version on the card
    (float32 with TF32 off; bf16 at the eval shape [120, 3136, 304], the
-   serving bucket's [8, 3136, 304], B = 1, and token counts that are not a
+   serving bucket's [8, 3136, 304], B = 1, phase 13's eval step [80, 16384,
+   304], and token counts that are not a
    multiple of the kernel's 64-token tile; two bf16 launches must be
    bit-equal) and times both at [120, 3136, 304] bf16, the wrapper and the
    launch alone, beside the module path (``CAVP.forward_fusion``) the plain
@@ -24,7 +25,8 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
    plain fusion path and prints frames/s for both;
 6. holds the train fusion kernels (forward and backward) against their
    plain PyTorch versions: float32 with TF32 off and bf16 at
-   [32, 3136, 304], float32 at a ragged token count (3199) and at C = 112;
+   [32, 3136, 304] and at phase 13's train step [16, 16384, 304], float32
+   at a ragged token count (3199) and at C = 112;
    the bf16 forward also at [8, 3136, 304] and B = 1, two launches of it
    bit-equal; every one of dx, dwqk, dm and the 17 weight gradients is
    compared, two backward launches must give bit-equal gradients; the bf16 backward's
@@ -40,22 +42,23 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
    then takes the same steps from the same state on the module path and
    prints step time, frames/s and peak memory of both;
 8. holds the log-mel kernel against the function in float64, beside its
-   plain version and the unfused ``preprocess_audio`` (float32, 120 and 8
-   rows of 16000 samples, a frame count that is no multiple of the kernel's
+   plain version and the unfused ``preprocess_audio`` (float32, 120, 8, 16
+   and 80 rows of 16000 samples, a frame count that is no multiple of the kernel's
    tile, a tone over a noise floor and the 60-7000 Hz band; two launches
    bit-equal), and times it beside the plain version, the unfused
    frontend and a composition of ``torch.fft.rfft``, power, filterbank and
    log, with its bound and the old dense design's;
 9. holds the upsample + argmax kernel against its plain version: bit-equal
-   masks for bf16 at [120, 56, 56, 71] -> 224 x 224 and [8, ...], at a
-   ragged size, with exact ties planted and on a tie-heavy input (logits
+   masks for bf16 at [120, 56, 56, 71] -> 224 x 224 and [8, ...], at
+   phase 13's [80, 128, 128, 71] -> 512 x 512, at a ragged size, with exact ties planted and on a tie-heavy input (logits
    of five values); two bf16 launches bit-equal; float32 equal wherever the
    top two resized logits differ by more than 1e-5; timed beside
    ``F.interpolate`` + ``argmax``;
 10. holds the fused layer1 kernels against their plain version on the stem
     output of real batches: float32 (TF32 off) and bf16 at B = 120 and
     B = 8, bf16 at a ragged map (37 x 45), at the 128-wide map of
-    512-square images and at a 200-wide map, and float32 at the 128-wide
+    512-square images (B = 2 and phase 13's eval step, B = 80) and at a
+    200-wide map, and float32 at the 128-wide
     map; two bf16 launches bit-equal; timed beside the ``layer1`` modules;
 11. runs the eval step at batch 120 and the ``Predictor`` requests of
     phase 4 with every kernel flag on (mel, layer1, fusion, argmax):
@@ -80,7 +83,31 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
     pixels (``VALIDATION_MASK_AGREEMENT``), and that the two arms' ten
     metrics agree within phase 11's mel-arm limit; it prints frames/s
     (decode included), the share of the loop spent waiting on the loader
-    and the decoder (PIL) with its distance from PIL's decode.
+    and the decoder (PIL) with its distance from PIL's decode;
+13. runs the training entry point ``python -m
+    cavp_tpu_torch.main_avss_resize`` at the avss setup's own size (512x512
+    under ``--resize_flag`` from 224x224 files, batch 16, bf16, 71 classes)
+    on a train split of 48 videos (16 each of v1s, v1m and v2: 3 steps an
+    epoch) and a test split of 24, with every kernel flag: once as its own
+    process in a working directory of its own (2 epochs, 6 steps, the
+    validation at epoch 0; 8 loader threads; exit 0), then in this process,
+    with one loader thread so that both arms draw the same batches: the
+    kernel arm is preempted after its third step by a SIGTERM to ``PreemptionSignal``,
+    where it checks the launches (K2's forward and its three backward
+    kernels and K3 once a train step, K1, K3, K4 and K5 on every eval step,
+    K5 once a bottleneck), the host syncs under
+    ``torch.cuda.set_sync_debug_mode`` (none in a train step or its batch
+    upload; the lagged metric read waits on the previous display point's
+    event only; the process's first step at the size fills the caches),
+    finite losses with CoroCL above 0, that every optimizer
+    group and the sound bank moved, and that the ``preempt`` file is
+    bit-equal to the live state; then it resumes from that file (epoch 1 at
+    step 3, the schedule's lr, exit normal) and runs the plain arm (no
+    launch; its first step's loss, cross-entropy and CoroCL terms within
+    phase 7's limit of the kernel arm's, on the same batch from the same
+    state); it prints steps/s and frames/s with the loader, the loader's
+    wait share, peak memory, the checkpoints' sizes and times and the
+    process wall time.
 
 The weights are random, drawn from a seed, and made non-degenerate (see
 ``random_weights``) so the comparisons are not empty. The numbers printed
@@ -106,6 +133,14 @@ SEED = 0
 BENCH_SHAPE = (120, 3136, 304)  # eval batch x 56*56 tokens x DeepLab feature
 TRAIN_SHAPE = (32, 3136, 304)   # train batch x 56*56 tokens x DeepLab feature
 TRAIN_BATCH = 32
+# phase 13's shapes, which phases 3, 6 and 8-10 also hold the kernels at:
+# 512x512 images under --resize_flag (128*128 tokens, logits upsampled
+# 128 -> 512), the avss setup's train batch of 16, and eval steps of 8
+# videos x 10 frame slots
+RESIZE_SIDE = 512
+RESIZE_TOKENS = (RESIZE_SIDE // 4) ** 2
+RESIZE_TRAIN_BATCH = 16
+RESIZE_EVAL_FRAMES = 80
 # H100 SXM data sheet: dense bf16 tensor rate, float32 rate outside the
 # tensor cores, dense TF32 tensor rate, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -319,7 +354,9 @@ def kernel_phase(model, device) -> dict:
         results[name] = mx
     for name, (b, n) in (("bf16_ragged", (3, 7 * 9)), ("bf16_ragged_3199", (3, 3199)),
                          ("bf16_b1", (1, BENCH_SHAPE[1])),
-                         ("bf16_bucket8", (8, BENCH_SHAPE[1])), ("bf16", BENCH_SHAPE[:2])):
+                         ("bf16_bucket8", (8, BENCH_SHAPE[1])),
+                         ("bf16_resize_eval", (RESIZE_EVAL_FRAMES, RESIZE_TOKENS)),
+                         ("bf16", BENCH_SHAPE[:2])):
         _, _, mx, mean = compare(b, n, torch.bfloat16)
         ok = mx <= BF16_MAX_ABS and mean <= BF16_MEAN_ABS
         print(f"[kernel] {name} [{b},{n},{C}]: max_abs_err {mx:.3e} "
@@ -624,6 +661,8 @@ def train_kernel_phase(model, small_model, device) -> dict:
               f"mean {BF16_MEAN_ABS}; two launches bit-equal: {'ok' if ok else 'FAIL'})")
         require(ok, f"{fname}: the bf16 forward kernel disagrees with the plain version")
     compare("bf16_c112", small_model, 3, 7 * 9 + 16, torch.bfloat16)
+    compare("bf16_resize_train", model, RESIZE_TRAIN_BATCH, RESIZE_TOKENS, torch.bfloat16)
+    torch.cuda.empty_cache()
     results["fwd_err"], results["bwd_err"], _ = compare("bf16", model, B, N, torch.bfloat16)
 
     # the bf16 backward's stages at the train step's shape, each against its
@@ -880,6 +919,8 @@ def mel_kernel_phase(config, device) -> dict:
     # 3 rows x 101 frames (every frame the waveform has): the last tile is
     # ragged and the last frames reflect at the end
     cases = (("eval", wave(rows), T, {}), ("bucket8", wave(8 * config.in_plane), T, {}),
+             ("resize_train", wave(RESIZE_TRAIN_BATCH * config.in_plane), T, {}),
+             ("resize_eval", wave(RESIZE_EVAL_FRAMES * config.in_plane), T, {}),
              ("ragged", wave(3), 1 + L // 160, {}),
              ("tone", torch.from_numpy(tone).to(device), T, {}),
              ("band 60-7000 Hz", wave(rows), T, band))
@@ -986,6 +1027,8 @@ def argmax_kernel_phase(config, device) -> dict:
     cases = (("bf16", (EVAL_BATCH, *low, C), hw, torch.bfloat16),
              ("bf16_tie_heavy", (EVAL_BATCH, *low, C), hw, torch.bfloat16),
              ("bf16_bucket8", (8, *low, C), hw, torch.bfloat16),
+             ("bf16_resize_eval", (RESIZE_EVAL_FRAMES, RESIZE_SIDE // 4, RESIZE_SIDE // 4, C),
+              (RESIZE_SIDE, RESIZE_SIDE), torch.bfloat16),
              ("bf16_ragged", (3, 30, 40, 5), (120, 160), torch.bfloat16),
              ("bf16_odd_ratio", (3, 30, 40, 5), (97, 131), torch.bfloat16),
              ("f32", (8, *low, C), hw, torch.float32),
@@ -1074,7 +1117,9 @@ def layer1_kernel_phase(config, model, device) -> dict:
              ("bf16_ragged", stem_of(3, 148, 180, SEED + 25), torch.bfloat16),
              ("bf16_wide", stem_of(2, 512, 512, SEED + 24), torch.bfloat16),
              ("f32_wide", stem_of(2, 512, 512, SEED + 24), torch.float32),
-             ("bf16_200_wide", stem_of(2, 160, 800, SEED + 26), torch.bfloat16)]
+             ("bf16_200_wide", stem_of(2, 160, 800, SEED + 26), torch.bfloat16),
+             ("bf16_resize_eval", stem_of(RESIZE_EVAL_FRAMES, RESIZE_SIDE, RESIZE_SIDE,
+                                          SEED + 27), torch.bfloat16)]
     results = {}
     for name, x, dtype in cases:
         x = x.to(dtype)
@@ -1517,6 +1562,355 @@ def validation_phase(config, model, state_dict, device, repo: Path,
     return warm
 
 
+TRAIN_VIDEOS = 48  # 16 each of v1s, v1m, v2: 3 steps an epoch at batch 16
+TRAIN_TEST_VIDEOS = 24
+TRAIN_FLAGS = ("use_pallas_fusion_train", "use_pallas_mel", "use_pallas_fusion",
+               "use_pallas_argmax", "use_pallas_layer1")
+
+
+def write_train_tree(root: Path, image_size: int, num_classes: int) -> None:
+    """A train split of TRAIN_VIDEOS and a test split of TRAIN_TEST_VIDEOS
+    under ``root`` (the writer makes one size for every split it writes;
+    the two metadata files are joined)."""
+    from cavp_tpu_torch.data.synthetic import make_synthetic_avss
+
+    base = Path(make_synthetic_avss(str(root), num_videos=TRAIN_VIDEOS, image_size=image_size,
+                                    num_classes=num_classes, splits=("train",)))
+    train_rows = (base / "metadata.csv").read_text().splitlines()[1:]
+    make_synthetic_avss(str(root), num_videos=TRAIN_TEST_VIDEOS, image_size=image_size,
+                        num_classes=num_classes, splits=("test",))
+    rows = (base / "metadata.csv").read_text().splitlines()
+    (base / "metadata.csv").write_text("\n".join(rows + train_rows) + "\n")
+
+
+def training_phase(config, device, repo: Path) -> dict:
+    """Phase 13: the training entry point, ``python -m
+    cavp_tpu_torch.main_avss_resize``, at the avss setup's own size (512x512
+    under ``--resize_flag`` from 224x224 files, batch 16, bf16, 71 classes)
+    with every kernel flag: once as a user runs it (2 epochs, 6 steps, the
+    validation at epoch 0), then in this process: the kernel arm preempted
+    after its third step (launch counts, host syncs, the groups and the bank
+    moved, the ``preempt`` file against the live state), the resume from
+    that file, and the plain arm (1 epoch, no launch, its first step against
+    the kernel arm's). The kernels are held against their plain versions at
+    this phase's shapes in phases 3, 6 and 8-10. Returns its numbers."""
+    import os
+    import shutil
+    import signal
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from cavp_tpu_torch import main_avss_resize
+    from cavp_tpu_torch.engine import checkpoint, runner
+    from cavp_tpu_torch.engine.optim import GROUPS, label_params
+    from cavp_tpu_torch.ops.kernels import fusion_train as ft
+    from cavp_tpu_torch.ops.kernels.fusion import fused_visual_fusion
+    from cavp_tpu_torch.ops.kernels.layer1 import fused_layer1
+    from cavp_tpu_torch.ops.kernels.mel import fused_log_mel
+    from cavp_tpu_torch.ops.kernels.upsample_argmax import upsample_argmax
+
+    eval_wrappers = {"mel": fused_log_mel, "layer1": fused_layer1,
+                     "fusion": fused_visual_fusion, "argmax": upsample_argmax}
+
+    def reset_counts():
+        for fn in eval_wrappers.values():
+            fn.launches = 0
+        ft.token_chain_train.launches = 0
+        ft.token_chain_train_backward.launches.update(
+            dict.fromkeys(ft.token_chain_train_backward.launches, 0))
+
+    def read_counts():
+        return dict({k: fn.launches for k, fn in eval_wrappers.items()},
+                    fwd=ft.token_chain_train.launches, **ft.token_chain_train_backward.launches)
+
+    root = repo / "build" / "chip_smoke_training"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_train_tree(root / "data", config.image_height, config.num_classes)
+    base = ["--setup", "avss", "--resize_flag", "--root_dataset_dir", str(root / "data")]
+    flags = [f"--{f}" for f in TRAIN_FLAGS]
+    cli = base + ["--num_workers", "8", "--epochs", "2"] + flags
+    # in this process one loader thread: the items' random draws then come
+    # in one order, and the kernel and plain arms get the same batches
+    kernels = base + ["--num_workers", "1", "--epochs", "2"] + flags
+    print(f"[training] wrote {TRAIN_VIDEOS} train and {TRAIN_TEST_VIDEOS} test videos at "
+          f"{config.image_height}x{config.image_width} in {time.perf_counter() - t0:.1f} s")
+
+    # as a user runs it, in a working directory of its own
+    cwd = root / "cli"
+    cwd.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "cavp_tpu_torch.main_avss_resize", *cli],
+                         cwd=cwd, capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=str(repo)))
+    wall = time.perf_counter() - t0
+    lines = [ln.split(" | INFO | ")[-1] for ln in out.stderr.splitlines()
+             if " | INFO | " in ln and ("epoch " in ln or "|ALL|" in ln)]
+    require(out.returncode == 0 and len(lines) == 3,
+            f"main_avss_resize: exit {out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    written = sorted(p.name for p in (cwd / "checkpoints").iterdir())
+    print(f"[training] python -m cavp_tpu_torch.main_avss_resize (every kernel flag) exit 0 in "
+          f"{wall:.1f} s of process wall time: {' || '.join(lines)}; checkpoints {written}")
+
+    # in this process: the kernel arm, preempted after its third step
+    real = dict(init_state=runner.init_state, make_train_step=runner.make_train_step,
+                run_validation=runner.run_validation, to_device=runner._to_device,
+                read=runner.MetricReader.read, save=checkpoint.save_checkpoint,
+                atomic=checkpoint._atomic_save)
+    rec = dict(states=[], steps=[], events=[], syncs=[], upload_syncs=[], read_syncs=[],
+               eval_steps=[], saves=[], writes=[], preempt_after=None)
+
+    def counted(fn, into):
+        """fn under torch.cuda.set_sync_debug_mode("warn"), its syncs counted"""
+        def run(*a, **kw):
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    res = fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            rec[into].append(sum("synchroniz" in str(w.message) for w in caught))
+            return res
+        return run
+
+    def init_state(*a, **kw):
+        state = real["init_state"](*a, **kw)
+        rec["states"].append(state)
+        rec["start"] = ({k: v.clone() for k, v in state.model.named_parameters()},
+                        state.sound_bank.clone())
+        return state
+
+    def make_train_step(*a, **kw):
+        step = counted(real["make_train_step"](*a, **kw), "syncs")
+
+        def recorded(state, batch, epoch):
+            before = state.step
+            # the step on the stream, from its first kernel's turn to its
+            # last: events, no sync
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events[0].record()
+            state, metrics = step(state, batch, epoch)
+            events[1].record()
+            rec["events"].append(events)
+            bkb = next(g for g in state.optimizers.sgd.param_groups if g["name"] == "bkb_decay")
+            rec["steps"].append((before, int(epoch), bkb["lr"], metrics))
+            if rec["preempt_after"] == len(rec["steps"]):
+                os.kill(os.getpid(), signal.SIGTERM)  # PreemptionSignal's flag
+            return state, metrics
+        return recorded
+
+    def run_validation(*a, **kw):
+        stats = {}
+        res = real["run_validation"](*a, stats=stats, **kw)
+        rec["eval_steps"].append(stats["steps"])
+        return res
+
+    in_validation = []
+
+    def to_device(batch, dev):
+        if in_validation:
+            return real["to_device"](batch, dev)
+        return counted(real["to_device"], "upload_syncs")(batch, dev)
+
+    def save_checkpoint(path, state, extra=None, blocking=True):
+        t = time.perf_counter()
+        out_path = real["save"](path, state, extra, blocking)
+        rec["saves"].append((Path(path).name, time.perf_counter() - t, blocking))
+        return out_path
+
+    def atomic_save(path, payload):
+        t = time.perf_counter()
+        real["atomic"](path, payload)
+        rec["writes"].append((Path(path).name, time.perf_counter() - t, os.path.getsize(path)))
+
+    def validation_flagged(*a, **kw):
+        in_validation.append(True)
+        try:
+            return run_validation(*a, **kw)
+        finally:
+            in_validation.pop()
+
+    runner.init_state, runner.make_train_step = init_state, make_train_step
+    runner.run_validation, runner._to_device = validation_flagged, to_device
+    runner.MetricReader.read = counted(real["read"], "read_syncs")
+    checkpoint.save_checkpoint, checkpoint._atomic_save = save_checkpoint, atomic_save
+    here = os.getcwd()
+    os.chdir(root)
+    try:
+        # the kernel arm: the counts are read from this run only
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec["preempt_after"] = 3
+        stats = {}
+        try:
+            main_avss_resize.main(kernels, device=device, stats=stats)
+            require(False, "the kernel arm was not preempted")
+        except runner.PreemptedError as exc:
+            message = str(exc)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = read_counts()
+        live = rec["states"][-1]
+        steps, syncs = list(rec["steps"]), list(rec["syncs"])
+        uploads, reads, eval_steps = list(rec["upload_syncs"]), list(rec["read_syncs"]), \
+            list(rec["eval_steps"])
+
+        n_eval = sum(eval_steps)
+        want = {"mel": len(steps) + n_eval, "layer1": 3 * n_eval, "fusion": n_eval,
+                "argmax": n_eval, "fwd": len(steps), "stage_a": len(steps),
+                "stage_b": len(steps), "reduce": len(steps), "f32": 0}
+        require(len(steps) == 3 and [e for _, e, _, _ in steps] == [0, 0, 0],
+                f"the kernel arm took {[(s, e) for s, e, _, _ in steps]}")
+        require(launches == want, f"the kernel arm's {len(steps)} train steps and {n_eval} eval "
+                f"steps launched {launches}, not {want}")
+        losses = [float(m["loss/loss"]) for _, _, _, m in steps]
+        first_metrics = steps[0][3]
+        ctr = [float(m["loss/l_ctr_av"]) for _, _, _, m in steps]
+        require(all(np.isfinite(losses)) and all(c > 0 for c in ctr),
+                f"losses {losses}, l_ctr_av {ctr}")
+        params0, bank0 = rec.pop("start")
+        labels = label_params(live.model)
+        moved = {labels[n] for n, p in live.model.named_parameters()
+                 if not torch.equal(p, params0[n])}
+        require(moved == set(GROUPS), f"groups that did not move: {set(GROUPS) - moved}")
+        require(not torch.equal(live.sound_bank, bank0), "the sound bank did not move")
+        del params0, bank0
+        # the process's first train step at this size fills the caches (the
+        # label resize's index tables, the mel's bases): copies that wait
+        require(syncs[1:] == [0] * 2 and uploads == [0] * 3,
+                f"host syncs: in the train steps {syncs}, in their batch uploads {uploads}")
+        require(stats["metric_waits"] == len(reads) == 3 and reads == [0] * 3,
+                f"metric reads: {stats['metric_waits']} event waits, syncs {reads}")
+        print(f"[training] kernel arm: {len(steps)} train steps (epoch 0) launched K2 forward "
+              f"{launches['fwd']}, backward stages {launches['stage_a']}/{launches['stage_b']}/"
+              f"{launches['reduce']}, K3 mel {launches['mel']} ({len(steps)} train + {n_eval} "
+              f"eval), K1 {launches['fusion']}, K4 {launches['argmax']}, K5 {launches['layer1']} "
+              f"over {n_eval} eval steps; losses {' '.join(f'{v:.4f}' for v in losses)}, "
+              f"l_ctr_av {' '.join(f'{v:.4f}' for v in ctr)}; all {len(GROUPS)} optimizer "
+              f"groups and the sound bank moved")
+        print(f"[training] host syncs: {syncs} inside the train steps (the first fills the "
+              f"caches), {uploads} in their batch uploads, {reads} in the lagged metric reads, "
+              f"which waited on {stats['metric_waits']} events (the previous display point's)")
+
+        # the preempt file against the live state
+        path = Path(message.split("--ckpt_path ")[-1])
+        require(path.name == "preempt.pth" and path.is_file(), f"preemption: {message}")
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        unequal = []
+        parts = {"model": live.model.state_dict(),
+                 "visual_optimizer": live.optimizers.sgd.state_dict(),
+                 "audio_optimizer": live.optimizers.adam.state_dict()}
+        for part, sd in parts.items():
+            saved = payload[part]
+            if part == "model":
+                pairs = [(k, saved[k], v) for k, v in sd.items()]
+            else:
+                pairs = [(f"{i}/{k}", saved["state"][i][k], v) for i, st in sd["state"].items()
+                         for k, v in st.items()]
+                if saved["param_groups"] != sd["param_groups"]:
+                    unequal.append(f"{part}/param_groups")
+            for name, a, b in pairs:
+                if a.dtype != b.dtype or not torch.equal(a.to(b.device), b):
+                    unequal.append(f"{part}/{name}")
+        if not torch.equal(payload["sound_bank"].to(device), live.sound_bank):
+            unequal.append("sound_bank")
+        if not torch.equal(payload["generator"], live.generator.get_state()):
+            unequal.append("generator")
+        counters = {k: payload[k] for k in ("step", "epoch", "iteration", "best_iou")}
+        require(unequal == [] and counters["step"] == live.step == 3
+                and (counters["epoch"], counters["iteration"]) == (0, 2),
+                f"the preempt file differs from the live state: {unequal[:10]} {counters}")
+        n_tensors = sum(len(p) for p in parts.values())
+        del payload, parts, live
+        rec["states"].clear()
+        print(f"[training] preempted after step 3: {path.name} "
+              f"({path.stat().st_size / 1e9:.3f} GB) bit-equal to the live state ({n_tensors} "
+              f"tensors of the model and both optimizers, the sound bank, the generator), "
+              f"counters {counters}")
+        saves = list(rec["saves"])
+        writes = list(rec["writes"])
+
+        # the resume, from the file, with the kernels
+        rec["steps"].clear()
+        rec["events"].clear()
+        rec["preempt_after"] = None
+        t = time.perf_counter()
+        warm = {}
+        state, best = main_avss_resize.main(kernels + ["--ckpt_path", str(path)], device=device,
+                                            stats=warm)
+        resume_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        step_ms = [a.elapsed_time(b) for a, b in rec["events"]]
+        first, epoch, lr, _ = rec["steps"][0]
+        sched = state.optimizers.schedule  # step i runs at schedule(i - 1)
+        require(first == 3 and epoch == 1 and state.step == 6
+                and [e for _, e, _, _ in rec["steps"]] == [1, 1, 1],
+                f"resumed at step {first}, epoch {epoch}; steps {rec['steps']}")
+        want_lr = state.optimizers.lr_at(first)
+        require(lr == want_lr and want_lr == sched(first - 1),
+                f"resumed lr {lr}, the schedule's {want_lr}")
+        require(best == counters["best_iou"], f"best_iou {best} against {counters['best_iou']}")
+        print(f"[training] resumed from {path.name}: epoch 1 from step {first} at the "
+              f"backbone lr {lr:.6g} (the schedule's at that step), 3 steps, exit normal in "
+              f"{resume_s:.1f} s; best_iou {best:.6f} restored")
+        del state
+        rec["states"].clear()
+
+        # the plain arm: no launch; its first step takes the kernel arm's
+        # first batch from the same state, so the two first steps' losses
+        # agree within phase 7's limit
+        reset_counts()
+        rec["steps"].clear()
+        main_avss_resize.main(base + ["--num_workers", "1", "--epochs", "1"], device=device)
+        require(all(v == 0 for v in read_counts().values()) and len(rec["steps"]) == 3,
+                f"the plain arm launched {read_counts()}")
+        report = []
+        for k in ("loss/loss", "loss/cross_entropy", "loss/l_ctr_av"):
+            got, ref = float(first_metrics[k]), float(rec["steps"][0][3][k])
+            rel = abs(got - ref) / abs(ref)
+            report.append(f"{k} {got:.5f} against {ref:.5f} ({rel:.2e})")
+            require(rel <= LOSS_REL, f"the kernel arm's first {k} is off the plain arm's: "
+                                     + report[-1])
+        print(f"[training] plain arm: 3 steps and a validation, no kernel launched; the first "
+              f"step, kernel arm against plain on the same batch (relative difference, limit "
+              f"{LOSS_REL}): " + ", ".join(report))
+        rec["states"].clear()
+    finally:
+        os.chdir(here)
+        runner.init_state, runner.make_train_step = real["init_state"], real["make_train_step"]
+        runner.run_validation, runner._to_device = real["run_validation"], real["to_device"]
+        runner.MetricReader.read = real["read"]
+        checkpoint.save_checkpoint, checkpoint._atomic_save = real["save"], real["atomic"]
+
+    res = dict(launches=launches, n_eval=n_eval, peak=peak, cli_s=wall, saves=saves,
+               writes=writes, step_ms=step_ms)
+    for name, st in (("cold", stats), ("warm", warm)):
+        res[name] = dict(steps_per_s=st["steps"] / st["wall_s"],
+                         frames_per_s=st["frames"] / st["wall_s"],
+                         wait=st["loader_wait_s"] / st["wall_s"])
+    print(f"[training] kernel arm, epoch 0 (the process's first steps at this size): "
+          f"{stats['steps']} steps of 16 frames in {stats['wall_s']:.3f} s (one loader "
+          f"thread), "
+          f"{res['cold']['steps_per_s']:.3f} steps/s, {res['cold']['frames_per_s']:.1f} frames/s "
+          f"with the loader, loader wait {100 * res['cold']['wait']:.1f}%; the resumed epoch 1 "
+          f"(warm): {warm['steps']} steps in {warm['wall_s']:.3f} s, "
+          f"{res['warm']['steps_per_s']:.3f} steps/s, {res['warm']['frames_per_s']:.1f} "
+          f"frames/s, loader wait {100 * res['warm']['wait']:.1f}%, the steps on the stream "
+          f"{' / '.join(f'{v:.1f}' for v in step_ms)} ms (CUDA events); validation "
+          f"{stats['validation_s']:.2f} s; peak memory {peak:.2f} GiB; checkpoints: "
+          + "; ".join(f"{n} host copies and hand-off {s:.2f} s ({'blocking' if b else 'async'})"
+                      for n, s, b in saves) + "; writes: "
+          + "; ".join(f"{n} {sz / 1e9:.3f} GB in {s:.2f} s" for n, s, sz in writes)
+          + f"; process wall time {wall:.1f} s; {card_line()}")
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1593,6 +1987,19 @@ def main() -> int:
           f"{val['kernels']['fps']:.1f}, plain {val['plain']['fps']:.1f}; loader wait "
           f"{100 * val['kernels']['wait']:.1f}% / {100 * val['plain']['wait']:.1f}% of the "
           f"loop; {card_line()}")
+    # 13. the training entry point on files: the counts are read from its runs only
+    del model
+    torch.cuda.empty_cache()
+    trained = training_phase(config, device, repo)
+    print(f"[training] the training entry point at 512x512, batch 16, bf16, every kernel flag, "
+          f"smoke readings of one 3-step window (warm): "
+          f"{trained['warm']['steps_per_s']:.3f} steps/s, {trained['warm']['frames_per_s']:.1f} "
+          f"frames/s with the loader, loader wait {100 * trained['warm']['wait']:.1f}%, the steps "
+          f"on the stream {statistics.median(trained['step_ms']):.1f} ms (median of "
+          f"{len(trained['step_ms'])}; the first epoch "
+          f"{trained['cold']['steps_per_s']:.3f} steps/s), peak "
+          f"{trained['peak']:.2f} GiB, process wall time {trained['cli_s']:.1f} s; "
+          f"{card_line()}")
 
     train_source = "cavp_tpu_torch/csrc/fusion_train_kernel.cu"
     print(json.dumps({"kernels": [

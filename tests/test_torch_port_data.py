@@ -148,11 +148,13 @@ def test_decoder_is_pil_and_raises_without_it(monkeypatch, tree):
 
 
 def test_train_mode_is_not_ported(tree):
+    """Of train mode, what is left: the COCO and VPO setups' augmentation
+    (its ColorJitter). The AVS setups' train items and augmentation are
+    held against the JAX package's in ``test_torch_port_train_data.py``."""
     cfg, _ = _configs(tree)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        avss.AVSSDataset(cfg, "train")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        VisualAugmentation(cfg.image_mean, cfg.image_std, SIZE, SIZE, "train")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        VisualAugmentation(cfg.image_mean, cfg.image_std, SIZE, SIZE, "train", setup="vpo_ms")
+    assert len(avss.AVSSDataset(cfg, "train")) == 0  # the tree has no train split
 
 
 def test_palette_and_availability_flags_match_jax():
@@ -239,10 +241,15 @@ def test_loader_hands_on_a_worker_failure():
 # ---------------------------------------------------------------------------
 
 
-def test_synthetic_tree_is_byte_equal_to_the_jax_writer(tmp_path):
+@pytest.mark.parametrize("options", [{}, dict(ambiguous=True), dict(vary_pos=True),
+                                     dict(ambiguous=True, vary_pos=True)],
+                         ids=["plain", "ambiguous", "vary_pos", "both"])
+def test_synthetic_tree_is_byte_equal_to_the_jax_writer(tmp_path, options):
     """Both splits, every file: the same names and the same bytes (both
-    encode with PIL, so the JPEG frames decode to the same pixels)."""
-    kw = dict(num_videos=VIDEOS, image_size=SIZE, num_classes=CLASSES, seed=3)
+    encode with PIL, so the JPEG frames decode to the same pixels), with
+    and without the training-fixture options (classes that share a tint,
+    squares at random offsets)."""
+    kw = dict(num_videos=VIDEOS, image_size=SIZE, num_classes=CLASSES, seed=3, **options)
     base = make_synthetic_avss(str(tmp_path / "port"), **kw)
     jbase = jax_make_synthetic_avss(str(tmp_path / "jax"), **kw)
 

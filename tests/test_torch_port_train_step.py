@@ -470,3 +470,34 @@ def test_unported_variants_and_the_default_device_raise():
             loops.make_train_step(None, None, cfg, variant=variant)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_state(cfg)
+
+
+def test_train_step_copies_no_host_array_and_sizes_nothing_from_the_data(monkeypatch):
+    """After its first call (which fills the caches), the train step makes
+    no tensor from host memory and calls no ``torch.bincount``, with its
+    draws from the generator, the overwrite
+    live (epoch 1, as an int and as a tensor) and either fusion path: on
+    the card each of these makes the host wait for the device, so the loop
+    could not run ahead. The nearest label resize once uploaded its index
+    tables on every call, CoroCL sized its class histogram from the data,
+    and the overwrite's epoch gate was uploaded every step. (Reads on the
+    host cannot be told apart here, where every tensor is one: Adam reads
+    its step counts, which lie on the host on the card too;
+    ``chip_smoke.py`` counts the syncs on the card.)"""
+    cfg = get_config("avss").replace(**SMALL18)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items() if k != "shuffle_idx"}
+    state = init_state(cfg, "cpu", steps_per_epoch=SPE)
+    arms = [(loops.make_train_step(state.model, state.optimizers, cfg.replace(**flags)), epoch)
+            for flags, epoch in (({}, 1), ({"use_pallas_fusion_train": True}, torch.tensor(1)))]
+    for step, epoch in arms:
+        state, _ = step(state, batch, epoch)
+    for arm, (step, epoch) in enumerate(arms):
+        made = []
+        for name in ("from_numpy", "tensor", "as_tensor", "bincount"):
+            real = getattr(torch, name)
+            monkeypatch.setattr(torch, name, lambda *a, _real=real, _name=name, **kw:
+                                made.append(_name) or _real(*a, **kw))
+        state, metrics = step(state, batch, epoch)
+        monkeypatch.undo()
+        assert made == [], (arm, made)
+    assert np.isfinite(float(metrics["loss/loss"])) and state.step == 4
