@@ -108,8 +108,7 @@ _SETUP_OWNED = {
 }
 
 # flags of features not ported yet, and the ROADMAP.md item that ports each
-_NOT_PORTED_FLAGS = {"use_baseline": "Queue 1 item 4", "use_multi_source": "Queue 1 item 5",
-                     "wandb_mode": "Queue 1 item 3"}
+_NOT_PORTED_FLAGS = {"use_multi_source": "Queue 1 item 5", "wandb_mode": "Queue 1 item 3"}
 
 
 def _explicit_flags(argv: Sequence[str]) -> set:

@@ -3,10 +3,11 @@
 Mirrors ``cavp_tpu/config/setups.py``: the same field names, defaults
 and ``get_config`` dispatch, cut to what the eval, serving and train
 steps, the training entry points (``cavp_tpu_torch.main_avss[_resize]``)
-and the evaluation entry point (``cavp_tpu_torch.test_avs_semantic``) use.
-The TPU-only knobs have no counterpart; the setups the port does not have
-yet raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+and the evaluation entry points (``cavp_tpu_torch.test_avs_semantic``,
+``cavp_tpu_torch.test_avss_resize``) use: the ``avss`` and ``avss_binary``
+setups. The TPU-only knobs have no counterpart; the setups the port does
+not have yet raise ``NotImplementedError`` naming their ``ROADMAP.md``
+item.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ class Config:
     # --- data roots ---
     root_dataset_dir: str = "../audio_visual"  # holds avsbench_semantic/
     dataset_name: str = "avsbench_data_single_yh/"
+    data_root: str = ""  # holds avsbench_data/ (the S4 and MS3 trees)
 
     # --- model ---
     num_classes: int = 71
@@ -68,6 +70,7 @@ class Config:
     gpus: int = 1   # data-parallel workers; scales the sound bank's depth
     nodes: int = 1
     num_workers: int = 16  # loader threads
+    use_baseline: bool = False  # the visual-only VisualModel, CE only
     avsbench_split: str = "all"
     resize_flag: bool = False  # resize frames and masks to image_height x width
     # exact audio-tower dedup on the train path (VGG tower, no BatchNorm):
@@ -125,11 +128,16 @@ def _avss() -> Config:
     return Config(setup="avss")
 
 
-SETUPS = {"avss": _avss}
+def _avss_binary() -> Config:
+    return Config(setup="avss_binary", image_width=224, image_height=224,
+                  dataset_name="avsbench_data_single_plus/", num_classes=2)
+
+
+SETUPS = {"avss": _avss, "avss_binary": _avss_binary}
 
 # the JAX package's other setups, and the ROADMAP.md item that ports each
-NOT_PORTED = {"avss_binary": "Queue 1 item 4", "vpo_ss": "Queue 1 item 5",
-              "vpo_ms": "Queue 1 item 5", "vpo_msmi": "Queue 1 item 5"}
+NOT_PORTED = {"vpo_ss": "Queue 1 item 5", "vpo_ms": "Queue 1 item 5",
+              "vpo_msmi": "Queue 1 item 5"}
 
 
 def get_config(setup: str) -> Config:

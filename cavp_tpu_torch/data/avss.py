@@ -11,6 +11,12 @@ loader: a test item holds the video's ten slots (frames [10, H, W, 3]); a
 train item holds one available frame, chosen with ``random.choice``
 *before* anything is decoded, augmented, with its 1 s audio window
 (frames [1, H, W, 3]), as the JAX package's train items do.
+
+Under ``avss_binary`` the model has 2 classes but the one-hot class labels
+stay 71 wide, as the reference's ``VisualDataset`` always makes them (its
+data config's 71 classes): they decide the train step's semantic pairing.
+The masks collapse to binary under ``resize_flag`` for that setup as for
+a single-subset split.
 """
 
 from __future__ import annotations
@@ -74,7 +80,7 @@ class AVSSDataset:
         if config.avsbench_split != "all":
             rows = [r for r in rows if r["label"] == config.avsbench_split]
         self.rows = rows
-        self.num_classes = config.num_classes
+        self.num_classes = 71 if config.setup == "avss_binary" else config.num_classes
         self.transform = VisualAugmentation(
             image_mean=config.image_mean, image_std=config.image_std,
             image_width=config.image_width, image_height=config.image_height,
@@ -94,9 +100,10 @@ class AVSSDataset:
         return class_label
 
     def _collapse(self, label: np.ndarray) -> np.ndarray:
-        """The binary collapse of a resized single-subset split
-        (visual_dataset.py:160-165)."""
-        if self.config.resize_flag and self.config.avsbench_split != "all":
+        """The binary collapse of a resized single-subset split or of the
+        resized ``avss_binary`` setup (visual_dataset.py:160-165)."""
+        if self.config.resize_flag and (self.config.avsbench_split != "all"
+                                        or self.config.setup == "avss_binary"):
             return np.where((label != 255) & (label != 0), 1, label)
         return label
 

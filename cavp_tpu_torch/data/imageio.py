@@ -46,9 +46,22 @@ def open_mask(path: str):
         return im
 
 
+def open_binary_mask(path: str):
+    """A mask as a 1-bit ``PIL.Image``: PIL's own ``convert("1")``, which
+    thresholds an 8-bit source with Floyd-Steinberg dither (the reference's
+    S4 and MS3 loaders)."""
+    with pil_image().open(path) as im:
+        return im.convert("1")
+
+
 def write_jpeg(path: str, rgb: np.ndarray) -> None:
     """uint8 [H, W, 3] -> JPEG at PIL's default quality."""
     pil_image().fromarray(rgb).save(path)
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """uint8 [H, W, 3] or [H, W] -> PNG (RGB or 8-bit grayscale)."""
+    pil_image().fromarray(image).save(path)
 
 
 def write_index_png(path: str, mask: np.ndarray) -> None:

@@ -2,7 +2,8 @@
 AVSBench-Semantics tree, so the dataset, the loader and the evaluation
 entry point run on real files, and in-memory batches with a setup's exact
 shapes. The same seeds give the same pixels, waveforms and draws as the
-JAX package's."""
+JAX package's. :func:`make_synthetic_avsbench` writes mini S4 and MS3
+trees for the J&F test entry point (the JAX package has no such writer)."""
 
 from __future__ import annotations
 
@@ -80,6 +81,58 @@ def make_synthetic_avss(root: str, num_videos: int = 4, image_size: int = 64,
     with open(os.path.join(base, "metadata.csv"), "w") as f:
         f.write("\n".join(rows) + "\n")
     return base
+
+
+def make_synthetic_avsbench(data_root: str, num_videos: int = 2, image_size: int = 64,
+                            seed: int = 0, splits=("train", "test"),
+                            category: str = "dog_barking") -> str:
+    """Write mini S4 and MS3 trees (``data/avsbench.py``'s layout) under
+    ``data_root``; returns it. Each video has five PNG frames with a
+    textured square that moves by a few pixels from frame to frame, 0/255
+    ``L`` PNG masks of that square (frames 1-5 in both splits), and a 10 s
+    tone. S4 videos are of ``category``."""
+    from cavp_tpu_torch.data.avsbench import ms3_paths, s4_paths
+    from cavp_tpu_torch.data.imageio import write_png
+
+    rng = np.random.RandomState(seed)
+    s4, ms3 = s4_paths(data_root), ms3_paths(data_root)
+    s4_rows, ms3_rows = ["name,split,category"], ["video_id,split"]
+    s = image_size // 4
+    t = np.linspace(0, 10, 160000, endpoint=False)
+
+    def video(img_dir, mask_dir, wav_path, img_name, mask_name, v):
+        for d in (img_dir, mask_dir, os.path.dirname(wav_path)):
+            os.makedirs(d, exist_ok=True)
+        for i in range(1, 6):
+            img = rng.randint(0, 255, (image_size, image_size, 3), dtype=np.uint8)
+            y0 = x0 = s + (i - 3) * max(s // 4, 1)
+            mask = np.zeros((image_size, image_size), np.uint8)
+            mask[y0:y0 + 2 * s, x0:x0 + 2 * s] = 255
+            region = img[y0:y0 + 2 * s, x0:x0 + 2 * s].astype(np.int32)
+            img[y0:y0 + 2 * s, x0:x0 + 2 * s] = (region // 4 + 150).clip(0, 255).astype(np.uint8)
+            write_png(os.path.join(img_dir, img_name(i)), img)
+            write_png(os.path.join(mask_dir, mask_name(i)), mask)
+        tone = 0.3 * np.sin(2 * np.pi * (300 + 40 * v) * t)
+        write_wav(wav_path, tone[None].astype(np.float32))
+
+    for split in splits:
+        for v in range(num_videos):
+            name = f"{split}_s{v}"
+            video(os.path.join(s4["dir_img"], split, category, name),
+                  os.path.join(s4["dir_mask"], split, category, name),
+                  os.path.join(s4["dir_wav"], split, category, name + ".wav"),
+                  lambda i: f"{name}_{i}.png", lambda i: f"{name}_{i}.png", v)
+            s4_rows.append(f"{name},{split},{category}")
+            mid = f"{split}_m{v}"
+            video(os.path.join(ms3["dir_img"], mid), os.path.join(ms3["dir_mask"], split, mid),
+                  os.path.join(ms3["dir_wav"], split, mid + ".wav"),
+                  lambda i: f"{mid}.mp4_{i}.png", lambda i: f"{mid}_{i}.png", v)
+            ms3_rows.append(f"{mid},{split}")
+    for paths, rows in ((s4, s4_rows), (ms3, ms3_rows)):
+        os.makedirs(os.path.dirname(paths["anno_csv"]), exist_ok=True)
+        with open(paths["anno_csv"], "w") as f:
+            f.write("\n".join(rows) + "\n")
+    return data_root
 
 
 def synthetic_train_batch(config, batch_size: Optional[int] = None, seed: int = 0

@@ -6,7 +6,9 @@ reference's state-dict names out. Layouts: conv HWIO -> OIHW, dense
 [in, out] -> [out, in], BN ``scale``/``bias`` params and ``mean``/``var``
 batch stats -> ``weight``/``bias``/``running_mean``/``running_var``.
 BatchNorm's ``num_batches_tracked`` (which the JAX package does not
-track) is set to 0, so the result loads with ``strict=True``.
+track) is set to 0, so the result loads with ``strict=True``. The baseline
+``VisualModel``'s tree is the ``backbone`` and ``segment`` part of the
+same grammar, so it converts as it is.
 
 Training adds :func:`named_tensors_from_jax`, which names any tree shaped
 like the params (gradients, parameter deltas) the same way and in the

@@ -4,12 +4,15 @@
 - :func:`make_train_step`: the avss train step: the CoroCL batch
   construction (shuffle, overwrite-miss-match, SoundBank FIFO, matched and
   shuffled audio over one visual batch), CE + CoroCL, backward, and the
-  multi-group SGD/Adam update;
+  multi-group SGD/Adam update; with ``variant="baseline"`` the
+  ``--use_baseline`` step (``VisualModel``, CE only);
 - :func:`make_inference_forward`: logits for the serving path;
 - :func:`make_eval_pred_forward`: the int32 argmax mask the metrics read;
 - :func:`make_eval_step`: the batched validation step over padded frame
   stacks with a validity mask, MIoU and ForegroundDetect accumulators
-  for ALL frames and the multi-source subset carried on the device.
+  for ALL frames and the multi-source subset carried on the device;
+- :func:`make_jf_test_step`: the AVSBench-Object (S4 / MS3) J&F test
+  step, per video.
 
 With ``config.use_pallas_fusion`` the eval fusion stage runs through the
 CUDA kernel (:mod:`cavp_tpu_torch.ops.kernels.fusion`) between
@@ -23,7 +26,12 @@ step), ``use_pallas_layer1`` (ResNet layer1,
 :mod:`cavp_tpu_torch.ops.kernels.layer1`) and, inside the
 ``use_pallas_fusion`` branch of the eval step, ``use_pallas_argmax`` (the
 logit upsample and the argmax,
-:mod:`cavp_tpu_torch.ops.kernels.upsample_argmax`).
+:mod:`cavp_tpu_torch.ops.kernels.upsample_argmax`). The eval flags wire
+their kernels in between the decomposed methods, so, as in the JAX
+package, they act only on a model that has them (:func:`_decomposable`):
+the baseline ``VisualModel`` runs its plain forward whatever the flags.
+The J&F step runs the plain forward and the plain log-mel, as the JAX
+package's does.
 
 The returned functions take and return the JAX package's layouts:
 images [N, H, W, 3], log-mels [N, T, 64, C], logits [N, H, W, classes],
@@ -40,9 +48,11 @@ from cavp_tpu_torch.audio.mel import preprocess_audio as _preprocess_nchw
 from cavp_tpu_torch.metrics import (
     MIoUState,
     counts,
+    eval_fmeasure,
     fg_init,
     fg_result,
     fg_update_weighted,
+    mask_iou,
     miou_init,
     miou_result,
     miou_update_weighted,
@@ -90,11 +100,16 @@ def make_train_step(model, optimizers, config, *, variant: str = "avss") -> Call
     ``corocl_scores`` [class_slots + 2, B*h*w] of the CoroCL sampler, and
     a precomputed ``mel`` ([2B,T,64,Ca], matched then shuffled). Without
     them the draws come from ``state.generator``.
+
+    ``variant="baseline"``: the ``--use_baseline`` step
+    (:func:`_make_baseline_train_step`).
     """
+    if variant == "baseline":
+        return _make_baseline_train_step(model, optimizers)
     if variant != "avss":
         raise NotImplementedError(
-            f"variant {variant!r} is not ported yet: the baseline and the vpo "
-            "steps come with the variants (ROADMAP P8)")
+            f"variant {variant!r} is not ported yet: the vpo steps come with "
+            "the variants (ROADMAP.md Queue 1 item 5, P8)")
     if getattr(config, "extra_losses", None):
         raise NotImplementedError(
             "extra_losses are not ported yet (ROADMAP P10)")
@@ -223,6 +238,29 @@ def make_train_step(model, optimizers, config, *, variant: str = "avss") -> Call
     return train_step
 
 
+def _make_baseline_train_step(model, optimizers) -> Callable:
+    """``--use_baseline`` (main_avss_resize.py:92-104): the visual-only
+    ``VisualModel`` and the cross-entropy alone: no shuffled batch, no
+    sound bank, no contrastive term. The same signature and state as the
+    avss step; ``batch`` needs ``image`` and ``pix_label`` only."""
+
+    def train_step(state: TrainState, batch, epoch) -> Tuple[TrainState, Dict]:
+        del epoch
+        if state.model is not model or state.optimizers is not optimizers:
+            raise ValueError("the state belongs to another model or optimizer")
+        optimizers.zero_grad()
+        model.train()
+        logits, _, _ = model(batch["image"].permute(0, 3, 1, 2), None, eval_mode=False)
+        loss = cross_entropy(logits.permute(0, 2, 3, 1), batch["pix_label"])
+        loss.backward()
+        optimizers.step(state.step)
+        state.step += 1
+        loss = loss.detach()
+        return state, {"loss/loss": loss, "loss/cross_entropy": loss}
+
+    return train_step
+
+
 # ---------------------------------------------------------------------------
 # Eval (AVSS validation: MIoU + ForegroundDetect, ALL + MS subsets)
 # ---------------------------------------------------------------------------
@@ -267,6 +305,13 @@ def _multi_source_flag(pix_label: torch.Tensor, thresh: int = 100) -> torch.Tens
     return (hist > thresh).sum(1) > 2
 
 
+def _decomposable(model) -> bool:
+    """Whether ``model`` has the decomposed methods the kernels are wired
+    between (``CAVP`` has, the baseline ``VisualModel`` has not)."""
+    return all(hasattr(model, m) for m in
+               ("forward_visual_feature", "forward_audio_feature", "forward_cls"))
+
+
 def _make_visual_feature_fn(model, config) -> Callable:
     """fea_v(image [B,3,H,W]) -> [B,latent,h,w], with ``use_pallas_layer1``
     routing ResNet layer1 through the fused bottleneck kernels
@@ -290,9 +335,9 @@ def _make_visual_feature_fn(model, config) -> Callable:
 
 def make_inference_forward(model, config) -> Callable:
     """Returns fwd(image [N,H,W,3], audio [N,T,64,C]) -> logits [N,H,W,classes]."""
-    use_fused = config.use_pallas_fusion
-    use_l1 = config.use_pallas_layer1
-    fea_v_fn = _make_visual_feature_fn(model, config)
+    use_fused = config.use_pallas_fusion and _decomposable(model)
+    use_l1 = config.use_pallas_layer1 and _decomposable(model)
+    fea_v_fn = _make_visual_feature_fn(model, config) if (use_fused or use_l1) else None
 
     @torch.inference_mode()
     def fwd(image, audio):
@@ -323,8 +368,9 @@ def make_eval_pred_forward(model, config) -> Callable:
     the separable bilinear arm (H pass, round, W pass, round), and with
     ``use_pallas_argmax`` that resize and the argmax are one kernel whose
     mask is bitwise the same, so the full-resolution logits never reach
-    device memory."""
-    if not config.use_pallas_fusion:
+    device memory. A model without the decomposed methods takes the plain
+    forward and the library argmax whatever the flags."""
+    if not (config.use_pallas_fusion and _decomposable(model)):
         fwd = make_inference_forward(model, config)
 
         def pred_fn(image, audio):
@@ -378,3 +424,47 @@ def make_eval_step(model, config) -> Callable:
                            fg_all=fg_all, fg_ms=fg_ms)
 
     return eval_step
+
+
+# ---------------------------------------------------------------------------
+# AVS-Object J&F test (S4 / MS3)
+# ---------------------------------------------------------------------------
+
+
+def make_jf_test_step(model, config) -> Callable:
+    """Returns jf_step(batch) -> (J [V], F [V]), one value per video.
+
+    batch: tensors on the model's device: image [V,T,H,W,3] (or one video
+    [T,H,W,3], which gives 0-dim results), waveform [V,T,Ca,L], pix_label
+    [V,T,H,W] in {0, 1}, valid [V,T]. The reference's J&F test
+    (trainer_cavp_avs_obj.test:292-353): J is the per-video ``mask_iou`` of
+    the argmax masks, F the per-video ``eval_fmeasure`` of the float32
+    softmax of class 1. All V x T frames go through one forward (the
+    reference loops over videos at batch 1), the model's plain forward with
+    the plain log-mel, in the module's mode."""
+    n_frames = config.mel_frames
+
+    @torch.inference_mode()
+    def jf_step(batch):
+        image = batch["image"]
+        single = image.dim() == 4
+        if single:
+            image = image[None]
+        V, T = image.shape[:2]
+        wave = batch["waveform"].reshape((V * T,) + tuple(batch["waveform"].shape[-2:]))
+        audio = _preprocess_nchw(wave, n_frames=n_frames, spec_min=config.spec_min,
+                                 spec_max=config.spec_max)
+        gt = batch["pix_label"].float().reshape((V, T) + tuple(batch["pix_label"].shape[-2:]))
+        valid = batch["valid"].reshape(V, T)
+        flat = image.reshape((V * T,) + tuple(image.shape[2:])).permute(0, 3, 1, 2)
+        logits, _, _ = model(flat, audio)  # [V*T, classes, H, W]
+        H, W = logits.shape[-2:]
+        pred_mask = logits.argmax(1).float().reshape(V, T, H, W)
+        probs = torch.softmax(logits.float(), dim=1)[:, 1].reshape(V, T, H, W)
+        j = mask_iou(pred_mask, gt, weight=valid)
+        f = eval_fmeasure(probs, gt, weight=valid)
+        if single:
+            return j[0], f[0]
+        return j, f
+
+    return jf_step

@@ -11,6 +11,10 @@ Six groups over the one ``CAVP`` module, by state-dict name:
 - ``audio``: ``audio_backbone.*`` (the JAX package's ``audio_net``),
   Adam at a constant ``config.lr``, never scheduled.
 
+A model without an audio tower (``VisualModel``) has no Adam: the JAX
+package's ``multi_transform`` simply has no ``audio`` leaves there, and
+the empty groups of the SGD hold nothing.
+
 In the ``*_decay`` groups only conv and linear weights decay (flax's
 ``kernel`` leaves); biases and BatchNorm affines go to ``*_nodecay``.
 ``torch.optim.SGD`` with ``dampening=0, nesterov=False`` is the JAX
@@ -25,7 +29,7 @@ sets the groups' lr *after* ``optimizer.step()``, so step 0 runs at
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -59,9 +63,9 @@ def label_params(model: nn.Module) -> Dict[str, str]:
 
 class Optimizers:
     """The SGD over the five scheduled groups and the Adam over the audio
-    tower, stepped together."""
+    tower (``None`` for a model without one), stepped together."""
 
-    def __init__(self, sgd: torch.optim.SGD, adam: torch.optim.Adam,
+    def __init__(self, sgd: torch.optim.SGD, adam: Optional[torch.optim.Adam],
                  schedule: Callable[[int], float], base_lr: float):
         self.sgd, self.adam = sgd, adam
         self.schedule, self.base_lr = schedule, base_lr
@@ -76,18 +80,22 @@ class Optimizers:
         for group in self.sgd.param_groups:
             group["lr"] = group["lr_multiplier"] * lr
         self.sgd.step()
-        self.adam.step()
+        if self.adam is not None:
+            self.adam.step()
 
     def zero_grad(self) -> None:
         self.sgd.zero_grad(set_to_none=True)
-        self.adam.zero_grad(set_to_none=True)
+        if self.adam is not None:
+            self.adam.zero_grad(set_to_none=True)
 
     def state_dict(self) -> dict:
-        return {"sgd": self.sgd.state_dict(), "adam": self.adam.state_dict()}
+        return {"sgd": self.sgd.state_dict(),
+                "adam": None if self.adam is None else self.adam.state_dict()}
 
     def load_state_dict(self, state: dict) -> None:
         self.sgd.load_state_dict(state["sgd"])
-        self.adam.load_state_dict(state["adam"])
+        if self.adam is not None:
+            self.adam.load_state_dict(state["adam"])
 
 
 def make_optimizer(model: nn.Module, config, steps_per_epoch: int = None
@@ -110,8 +118,9 @@ def make_optimizer(model: nn.Module, config, steps_per_epoch: int = None
           "weight_decay": 0.0 if g.endswith("nodecay") else config.weight_decay}
          for g in SGD_GROUPS],
         lr=config.lr, momentum=config.momentum, dampening=0.0, nesterov=False)
-    adam = torch.optim.Adam([{"params": by_group["audio"], "name": "audio"}],
-                            lr=config.lr, betas=(0.9, 0.999), eps=1e-8)
+    adam = (torch.optim.Adam([{"params": by_group["audio"], "name": "audio"}],
+                             lr=config.lr, betas=(0.9, 0.999), eps=1e-8)
+            if by_group["audio"] else None)
     return Optimizers(sgd, adam, schedule, config.lr), schedule
 
 

@@ -1,5 +1,5 @@
-"""Model and train-state construction, the training loop and the validation
-loop (``cavp_tpu/engine/runner.py``).
+"""Model and train-state construction, the training loop, the validation
+loop and the J&F test loop (``cavp_tpu/engine/runner.py``).
 
 :func:`run_training` is the reference's shared ``main()`` skeleton as one
 engine: the datasets, the model and its optimizers from the config, a
@@ -42,32 +42,40 @@ from cavp_tpu_torch.engine.loops import (
     eval_metrics_init,
     eval_metrics_result,
     make_eval_step,
+    make_jf_test_step,
     make_train_step,
 )
 from cavp_tpu_torch.engine.optim import current_lrs, make_optimizer
 from cavp_tpu_torch.engine.state import TrainState, create_train_state
-from cavp_tpu_torch.models.cavp import CAVP
+from cavp_tpu_torch.models.cavp import CAVP, VisualModel
 from cavp_tpu_torch.models.layers import init_parameters
 from cavp_tpu_torch.utils import Tensorboard, logger
 
 
 def build_model(config: Config, device=None,
                 generator: Optional[torch.Generator] = None,
-                train: bool = False) -> CAVP:
-    """The ``CAVP`` for ``config`` on ``device`` (default: the CUDA card;
-    raises when there is none), in eval mode unless ``train``, in
+                train: bool = False) -> torch.nn.Module:
+    """The ``CAVP`` for ``config`` (the baseline ``VisualModel`` under
+    ``config.use_baseline``) on ``device`` (default: the CUDA card; raises
+    when there is none), in eval mode unless ``train``, in
     ``channels_last`` memory format, with float32 parameters drawn from
     ``generator`` (default: seeded with ``config.seed``)."""
     device = resolve_device(device)
+    dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32
     # built without storage, so torch's default draws, which
     # init_parameters overwrites, are not made (about half of the build)
     with torch.device("meta"):
-        model = CAVP(num_classes=config.num_classes, seg_model=config.seg_model,
-                     visual_backbone=config.visual_backbone,
-                     last_three_dilation_stride=tuple(config.last_three_dilation_stride),
-                     audio_backbone=config.audio_backbone, in_plane=config.in_plane,
-                     dtype=torch.bfloat16 if config.compute_dtype == "bfloat16"
-                     else torch.float32)
+        if config.use_baseline:
+            model = VisualModel(
+                num_classes=config.num_classes, visual_backbone=config.visual_backbone,
+                last_three_dilation_stride=tuple(config.last_three_dilation_stride),
+                dtype=dtype)
+        else:
+            model = CAVP(num_classes=config.num_classes, seg_model=config.seg_model,
+                         visual_backbone=config.visual_backbone,
+                         last_three_dilation_stride=tuple(config.last_three_dilation_stride),
+                         audio_backbone=config.audio_backbone, in_plane=config.in_plane,
+                         dtype=dtype)
     model.to_empty(device="cpu")
     if generator is None:
         generator = torch.Generator().manual_seed(config.seed)
@@ -220,7 +228,9 @@ def run_training(config: Config, variant: str, make_datasets: Callable,
                  device=None, stats: Optional[dict] = None):
     """Train ``config.epochs`` epochs on ``device`` (default: the CUDA card;
     raises when there is none). ``make_datasets(config) -> (train_ds,
-    test_ds, train_collate)``. Returns (state, best_miou).
+    test_ds, train_collate)``. Returns (state, best_miou). Under
+    ``config.use_baseline`` the step is ``variant="baseline"`` whatever
+    ``variant`` says (main_avss_resize.py:92-104).
 
     ``config.ckpt_path`` resumes: a checkpoint of this package restores
     the whole state (step, both optimizers, the sound bank, the
@@ -277,6 +287,8 @@ def _run_training(config, variant, make_datasets, ckpt_dir, max_steps_per_epoch,
     test_loader = (DataLoader(test_ds, eval_batch_size, eval_collate,
                               num_workers=config.num_workers)
                    if test_ds is not None else None)
+    if config.use_baseline:
+        variant = "baseline"  # the visual-only CE step
     train_step = make_train_step(state.model, state.optimizers, config, variant=variant)
     state, best_iou = _epoch_loop(config, state, engine, wandb_, train_loader, test_loader,
                                   train_step, start_epoch, spe, profile_dir,
@@ -463,3 +475,47 @@ def run_validation(config: Config, model, test_loader, device=None, wandb_=None,
         stats.update(steps=steps, frames=frames, wall_s=time.perf_counter() - start,
                      loader_wait_s=waited)
     return dict(zip(result, values))
+
+
+# ---------------------------------------------------------------------------
+# J&F test (AVSBench-Object)
+# ---------------------------------------------------------------------------
+
+
+def run_jf_test(config: Config, model, test_loader, device=None,
+                stats: Optional[dict] = None) -> Dict[str, float]:
+    """The ``test_avss_resize.py`` J&F test (trainer_cavp_avs_obj.py:346-353):
+    each batch of padded videos through ``make_jf_test_step`` with the model
+    in eval mode on ``device`` (default: the CUDA card), J and F kept per
+    video on the device and read once, at the end; returns their means over
+    the videos (``miou``, ``F_score``) and ``J&F``, their mean. ``stats``,
+    when given, receives ``steps``, ``videos``, ``wall_s`` and
+    ``loader_wait_s``."""
+    device = resolve_device(device)
+    model.eval()
+    jf_step = make_jf_test_step(model, config)
+    js, fs = [], []
+    steps = videos = 0
+    waited = 0.0
+    start = time.perf_counter()
+    batches = iter(test_loader)
+    while True:
+        t = time.perf_counter()
+        batch = next(batches, None)
+        waited += time.perf_counter() - t
+        if batch is None:
+            break
+        for k in ("name", "img_label", "frame_available"):
+            batch.pop(k, None)
+        j, f = jf_step(_to_device(batch, device))
+        js.append(j.reshape(-1))
+        fs.append(f.reshape(-1))
+        steps += 1
+        videos += js[-1].numel()
+    # the run's one wait for the device
+    j_mean, f_mean = torch.stack([torch.cat(js).double().mean(),
+                                  torch.cat(fs).double().mean()]).tolist()
+    if stats is not None:
+        stats.update(steps=steps, videos=videos, wall_s=time.perf_counter() - start,
+                     loader_wait_s=waited)
+    return {"miou": j_mean, "F_score": f_mean, "J&F": (j_mean + f_mean) / 2}

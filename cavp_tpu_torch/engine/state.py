@@ -66,12 +66,14 @@ class TrainState:
         """Host copies of everything a step changes, under the checkpoint's
         keys: ``model`` (the reference's state-dict names),
         ``visual_optimizer`` (the SGD over the five scheduled groups),
-        ``audio_optimizer`` (the Adam over the audio tower), ``step``,
+        ``audio_optimizer`` (the Adam over the audio tower; ``None`` for a
+        model without one), ``step``,
         ``sound_bank`` and ``generator`` (its state)."""
         return {
             "model": to_host(self.model.state_dict()),
             "visual_optimizer": to_host(self.optimizers.sgd.state_dict()),
-            "audio_optimizer": to_host(self.optimizers.adam.state_dict()),
+            "audio_optimizer": (None if self.optimizers.adam is None
+                                else to_host(self.optimizers.adam.state_dict())),
             "step": self.step,
             "sound_bank": None if self.sound_bank is None else to_host(self.sound_bank),
             "generator": self.generator.get_state(),
@@ -90,7 +92,8 @@ class TrainState:
 
         self.model.load_state_dict(state["model"], strict=True)
         self.optimizers.sgd.load_state_dict(map_tensors(own, state["visual_optimizer"]))
-        self.optimizers.adam.load_state_dict(map_tensors(own, state["audio_optimizer"]))
+        if self.optimizers.adam is not None:
+            self.optimizers.adam.load_state_dict(map_tensors(own, state["audio_optimizer"]))
         self.step = int(state["step"])
         bank = state["sound_bank"]
         self.sound_bank = None if bank is None else bank.to(device, copy=True)

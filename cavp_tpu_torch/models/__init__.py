@@ -1,3 +1,3 @@
-from cavp_tpu_torch.models.cavp import CAVP
+from cavp_tpu_torch.models.cavp import CAVP, VisualModel
 
-__all__ = ["CAVP"]
+__all__ = ["CAVP", "VisualModel"]

@@ -1,4 +1,5 @@
-"""CAVP model assembly for the DeepLabV3+ paths (``cavp_tpu/models/cavp.py``).
+"""CAVP model assembly for the DeepLabV3+ paths, and the visual-only
+baseline ``VisualModel`` (``cavp_tpu/models/cavp.py``).
 
 - visual backbone: deep-stem ResNet + DeepLabV3+, giving the
   1/4-resolution fusion feature (304 channels; 112 for depth 18);
@@ -153,3 +154,34 @@ class CAVP(nn.Module):
         if eval_mode:
             return self.forward_inference(image, audio)
         return self.forward_train(image, audio, audio_gather_idx)
+
+
+class VisualModel(nn.Module):
+    """The visual-only baseline of ``--use_baseline``
+    (``models/visual/visual_network.py:17-61``): the deep-stem ResNet and
+    DeepLabV3+, no audio tower, no fusion. Its state-dict names are the
+    reference's (``backbone.backbone.*``, ``segment.*``), the visual part of
+    ``CAVP``'s.
+
+    It has neither ``seg_model`` nor the decomposed ``forward_*`` methods,
+    so no fusion or layer1 kernel is wired into its steps, as in the JAX
+    package (whose ``VisualModel`` has neither either)."""
+
+    def __init__(self, num_classes: int, visual_backbone: int = 50,
+                 last_three_dilation_stride: Sequence[bool] = (False, False, False),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.backbone = Backbone(visual_backbone, tuple(last_three_dilation_stride))
+        self.segment = DeepLabV3Plus(num_classes, aspp_in_plane=2048,
+                                     aspp_out_plane=256 if visual_backbone in (50, 101) else 64)
+
+    def forward(self, image, audio=None, eval_mode: bool = True):
+        """``CAVP``'s call, the audio ignored: image [B, 3, H, W] ->
+        (logits [B, classes, H, W], feature [B, latent, H/4, W/4], {}), in
+        the module's mode."""
+        fea = self.segment.forward_feature(self.backbone(image.to(self.dtype)))
+        logits = self.segment.upsample(fea)
+        logits = F.interpolate(logits, size=tuple(image.shape[-2:]), mode="bilinear",
+                               align_corners=False)
+        return logits, fea, {}

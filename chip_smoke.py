@@ -51,9 +51,11 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
 9. holds the upsample + argmax kernel against its plain version: bit-equal
    masks for bf16 at [120, 56, 56, 71] -> 224 x 224 and [8, ...], at
    phase 13's [80, 128, 128, 71] -> 512 x 512, at a ragged size, with exact ties planted and on a tie-heavy input (logits
-   of five values); two bf16 launches bit-equal; float32 equal wherever the
-   top two resized logits differ by more than 1e-5; timed beside
-   ``F.interpolate`` + ``argmax``;
+   of five values), and at the binary setup's 2 classes ([120, 56, 56, 2]
+   and [16, ...] -> 224 x 224, a ragged [3, 30, 41, 2] -> 97 x 131, a
+   tie-heavy batch); two bf16 launches bit-equal (at 71 and at 2 classes);
+   float32 equal wherever the top two resized logits differ by more than
+   1e-5; timed beside ``F.interpolate`` + ``argmax`` at 71 and at 2 classes;
 10. holds the fused layer1 kernels against their plain version on the stem
     output of real batches: float32 (TF32 off) and bf16 at B = 120 and
     B = 8, bf16 at a ragged map (37 x 45), at the 128-wide map of
@@ -107,7 +109,25 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
     phase 7's limit of the kernel arm's, on the same batch from the same
     state); it prints steps/s and frames/s with the loader, the loader's
     wait share, peak memory, the checkpoints' sizes and times and the
-    process wall time.
+    process wall time;
+14. runs the binary setup and the AVSBench-Object J&F test at their own
+    sizes: ``avss_binary`` (224x224, 2 classes, batch 16, bf16, every kernel
+    flag) through ``python -m cavp_tpu_torch.main_avss_resize --setup
+    avss_binary --resize_flag`` (one epoch of 3 steps and a validation) and
+    ``python -m cavp_tpu_torch.test_avss_resize`` on S4 (v1s) and MS3 (v1m)
+    test splits of 8 videos (4 a batch), the seeded 2-class model saved as a
+    reference ``.pth`` and the masks rewritten from its own predictions:
+    three processes side by side (exit 0, the metric lines, no load
+    warnings), then in this process: the training kernel arm (K2's forward
+    and backward kernels and K3 once a train step, K1, K3, K4 at 2 classes
+    and K5 on every eval step; no host sync in a train step after the first;
+    finite losses; every optimizer group moved, the sound bank not), the
+    plain arm (no launch; its first step within phase 7's limit), the J&F
+    test with every eval kernel flag given (no launch, as in the JAX
+    package; the strict load clean; finite mIoU, F and J&F), and both entry
+    points with ``--use_baseline`` (K3 on each eval step, nothing else);
+    it prints steps/s, frames/s with the loader, the J&F videos/s and the
+    peak memory.
 
 The weights are random, drawn from a seed, and made non-degenerate (see
 ``random_weights``) so the comparisons are not empty. The numbers printed
@@ -1015,7 +1035,10 @@ def argmax_kernel_phase(config, device) -> dict:
         B, h, w, c = shape
         x = torch.randn(*shape, generator=g).to(device, dtype)
         x[:, : h // 2, :, c - 1] = x[:, : h // 2, :, 0]
-        x[:, :, : w // 3, 1] = x[:, :, : w // 3, 2]
+        if c > 2:
+            x[:, :, : w // 3, 1] = x[:, :, : w // 3, 2]
+        else:  # 2 classes: a tie column band as well
+            x[:, :, : w // 3, 1] = x[:, :, : w // 3, 0]
         x[0, h // 2:, w // 2:, :] = 0.25
         return x
 
@@ -1032,7 +1055,13 @@ def argmax_kernel_phase(config, device) -> dict:
              ("bf16_ragged", (3, 30, 40, 5), (120, 160), torch.bfloat16),
              ("bf16_odd_ratio", (3, 30, 40, 5), (97, 131), torch.bfloat16),
              ("f32", (8, *low, C), hw, torch.float32),
-             ("f32_ragged", (3, 30, 40, 5), (120, 160), torch.float32))
+             ("f32_ragged", (3, 30, 40, 5), (120, 160), torch.float32),
+             # the avss_binary setup's 2 classes: the whole class row is
+             # the remainder of the kernel's 8-class vector
+             ("bf16_2class", (EVAL_BATCH, *low, 2), hw, torch.bfloat16),
+             ("bf16_2class_batch16", (16, *low, 2), hw, torch.bfloat16),
+             ("bf16_2class_ragged", (3, 30, 41, 2), (97, 131), torch.bfloat16),
+             ("bf16_2class_tie_heavy", (16, *low, 2), hw, torch.bfloat16))
     for name, shape, out_hw, dtype in cases:
         x = (tie_heavy if name.endswith("tie_heavy") else logits)(shape, dtype)
         got = upsample_argmax(x, out_hw)
@@ -1041,7 +1070,7 @@ def argmax_kernel_phase(config, device) -> dict:
         require(got.shape == (shape[0], *out_hw) and got.dtype == torch.int32,
                 f"argmax kernel output {got.shape} {got.dtype}")
         require(0 <= int(got.min()) and int(got.max()) < shape[3], "argmax kernel range")
-        if name != "bf16_tie_heavy":
+        if not name.endswith("tie_heavy"):
             require(int(got[0, -1, -1]) == 0, "a full tie did not go to the first class")
         differ = got != ref
         n_diff = int(differ.sum())
@@ -1056,30 +1085,31 @@ def argmax_kernel_phase(config, device) -> dict:
               f"{got.numel()} mask entries differ from the plain version "
               f"({'bit-equal' if n_diff == 0 else 'near-ties only'}; ties planted)")
         results[name] = float(n_diff)
-        if name == "bf16":
+        if name in ("bf16", "bf16_2class"):
             again = upsample_argmax(x, out_hw)
-            require(bool(torch.equal(got, again)), "two bf16 argmax launches differ")
-            print("[argmax-kernel] two bf16 launches at the eval shape: bit-equal")
+            require(bool(torch.equal(got, again)), f"two {name} argmax launches differ")
+            print(f"[argmax-kernel] two {name} launches at the eval shape: bit-equal")
 
-    x = logits((EVAL_BATCH, *low, C), torch.bfloat16)
-    x_nchw = x.permute(0, 3, 1, 2)   # the head's own layout: channels_last
-    launches = upsample_argmax.launches
-    ms = interleaved_ms({
-        "kernel": lambda: upsample_argmax(x, hw),
-        "plain": lambda: upsample_argmax_reference(x, hw),
-        "library": lambda: F.interpolate(x_nchw, size=hw, mode="bilinear",
-                                         align_corners=False).argmax(1)}, 5)
-    upsample_argmax.launches = launches
     B, (h, w), (H, W) = EVAL_BATCH, low, hw
-    # per class: 3 operations an H-pass value, 3 and the comparison a W-pass one
-    flops = B * C * (3 * H * w + 4 * H * W)
-    nbytes = x.numel() * 2 + B * H * W * 4
-    results.update(ms)
-    results["bound"] = bound_ms(flops, nbytes)
-    print(f"[argmax-kernel] time at {list(x.shape)} bf16 -> {list(hw)}: kernel "
-          f"{ms['kernel']:.3f} ms, plain {ms['plain']:.3f} ms, F.interpolate + argmax "
-          f"{ms['library']:.3f} ms; bound {results['bound'][0]:.4f} ms by "
-          f"{results['bound'][1]} (989 TFLOP/s bf16, 3.35 TB/s)")
+    for classes, suffix in ((C, ""), (2, "_2")):
+        x = logits((EVAL_BATCH, *low, classes), torch.bfloat16)
+        x_nchw = x.permute(0, 3, 1, 2)   # the head's own layout: channels_last
+        launches = upsample_argmax.launches
+        ms = interleaved_ms({
+            "kernel": lambda: upsample_argmax(x, hw),
+            "plain": lambda: upsample_argmax_reference(x, hw),
+            "library": lambda: F.interpolate(x_nchw, size=hw, mode="bilinear",
+                                             align_corners=False).argmax(1)}, 5)
+        upsample_argmax.launches = launches
+        # per class: 3 operations an H-pass value, 3 and the comparison a W-pass one
+        flops = B * classes * (3 * H * w + 4 * H * W)
+        nbytes = x.numel() * 2 + B * H * W * 4
+        results.update({k + suffix: v for k, v in ms.items()})
+        results["bound" + suffix] = bound_ms(flops, nbytes)
+        print(f"[argmax-kernel] time at {list(x.shape)} bf16 -> {list(hw)}: kernel "
+              f"{ms['kernel']:.3f} ms, plain {ms['plain']:.3f} ms, F.interpolate + argmax "
+              f"{ms['library']:.3f} ms; bound {results['bound' + suffix][0]:.4f} ms by "
+              f"{results['bound' + suffix][1]} (989 TFLOP/s bf16, 3.35 TB/s); {card_line()}")
     return results
 
 
@@ -1583,6 +1613,35 @@ def write_train_tree(root: Path, image_size: int, num_classes: int) -> None:
     (base / "metadata.csv").write_text("\n".join(rows + train_rows) + "\n")
 
 
+def _wrappers() -> dict:
+    """Every kernel wrapper of the main paths, by name; K2's backward
+    keeps one count per launch of its stages (and of its float32 kernel)."""
+    from cavp_tpu_torch.ops.kernels import fusion_train as ft
+    from cavp_tpu_torch.ops.kernels.fusion import fused_visual_fusion
+    from cavp_tpu_torch.ops.kernels.layer1 import fused_layer1
+    from cavp_tpu_torch.ops.kernels.mel import fused_log_mel
+    from cavp_tpu_torch.ops.kernels.upsample_argmax import upsample_argmax
+
+    return {"mel": fused_log_mel, "layer1": fused_layer1, "fusion": fused_visual_fusion,
+            "argmax": upsample_argmax, "fwd": ft.token_chain_train,
+            "bwd": ft.token_chain_train_backward}
+
+
+def reset_launches() -> None:
+    for name, fn in _wrappers().items():
+        if name == "bwd":
+            fn.launches.update(dict.fromkeys(fn.launches, 0))
+        else:
+            fn.launches = 0
+
+
+def read_launches() -> dict:
+    """{mel, layer1, fusion, argmax, fwd, stage_a, stage_b, reduce, f32}."""
+    w = _wrappers()
+    bwd = w.pop("bwd")
+    return dict({k: fn.launches for k, fn in w.items()}, **bwd.launches)
+
+
 def training_phase(config, device, repo: Path) -> dict:
     """Phase 13: the training entry point, ``python -m
     cavp_tpu_torch.main_avss_resize``, at the avss setup's own size (512x512
@@ -1605,25 +1664,6 @@ def training_phase(config, device, repo: Path) -> dict:
     from cavp_tpu_torch import main_avss_resize
     from cavp_tpu_torch.engine import checkpoint, runner
     from cavp_tpu_torch.engine.optim import GROUPS, label_params
-    from cavp_tpu_torch.ops.kernels import fusion_train as ft
-    from cavp_tpu_torch.ops.kernels.fusion import fused_visual_fusion
-    from cavp_tpu_torch.ops.kernels.layer1 import fused_layer1
-    from cavp_tpu_torch.ops.kernels.mel import fused_log_mel
-    from cavp_tpu_torch.ops.kernels.upsample_argmax import upsample_argmax
-
-    eval_wrappers = {"mel": fused_log_mel, "layer1": fused_layer1,
-                     "fusion": fused_visual_fusion, "argmax": upsample_argmax}
-
-    def reset_counts():
-        for fn in eval_wrappers.values():
-            fn.launches = 0
-        ft.token_chain_train.launches = 0
-        ft.token_chain_train_backward.launches.update(
-            dict.fromkeys(ft.token_chain_train_backward.launches, 0))
-
-    def read_counts():
-        return dict({k: fn.launches for k, fn in eval_wrappers.items()},
-                    fwd=ft.token_chain_train.launches, **ft.token_chain_train_backward.launches)
 
     root = repo / "build" / "chip_smoke_training"
     shutil.rmtree(root, ignore_errors=True)
@@ -1742,7 +1782,7 @@ def training_phase(config, device, repo: Path) -> dict:
     os.chdir(root)
     try:
         # the kernel arm: the counts are read from this run only
-        reset_counts()
+        reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         rec["preempt_after"] = 3
@@ -1754,7 +1794,7 @@ def training_phase(config, device, repo: Path) -> dict:
             message = str(exc)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        launches = read_counts()
+        launches = read_launches()
         live = rec["states"][-1]
         steps, syncs = list(rec["steps"]), list(rec["syncs"])
         uploads, reads, eval_steps = list(rec["upload_syncs"]), list(rec["read_syncs"]), \
@@ -1864,11 +1904,11 @@ def training_phase(config, device, repo: Path) -> dict:
         # the plain arm: no launch; its first step takes the kernel arm's
         # first batch from the same state, so the two first steps' losses
         # agree within phase 7's limit
-        reset_counts()
+        reset_launches()
         rec["steps"].clear()
         main_avss_resize.main(base + ["--num_workers", "1", "--epochs", "1"], device=device)
-        require(all(v == 0 for v in read_counts().values()) and len(rec["steps"]) == 3,
-                f"the plain arm launched {read_counts()}")
+        require(all(v == 0 for v in read_launches().values()) and len(rec["steps"]) == 3,
+                f"the plain arm launched {read_launches()}")
         report = []
         for k in ("loss/loss", "loss/cross_entropy", "loss/l_ctr_av"):
             got, ref = float(first_metrics[k]), float(rec["steps"][0][3][k])
@@ -1909,6 +1949,303 @@ def training_phase(config, device, repo: Path) -> dict:
           + f"; process wall time {wall:.1f} s; {card_line()}")
     shutil.rmtree(root, ignore_errors=True)
     return res
+
+
+BINARY_JF_VIDEOS = 8  # S4 and MS3 test videos each: 2 J&F steps of 4 videos
+
+
+def relabel_binary(model, config, device) -> None:
+    """Rewrite the S4 and MS3 test masks from the model's own view: a pixel
+    is an object where the class-1 logit leads class 0 by more than that
+    frame's median lead, so half of every frame is foreground and J and F
+    measure how well the argmax and the softmax find it (the writer's
+    squares mean nothing to the random model, and J would sit at chance)."""
+    import numpy as np
+    import torch
+
+    from cavp_tpu_torch.data.avsbench import MS3Dataset, S4Dataset, s4_paths
+    from cavp_tpu_torch.data.imageio import write_png
+    from cavp_tpu_torch.engine.loops import make_inference_forward, preprocess_audio
+
+    fwd = make_inference_forward(model, config.replace(**dict.fromkeys(ALL_FLAGS, False)))
+    s4 = S4Dataset(config, "test")
+    ms3 = MS3Dataset(config, "test")
+    for ds in (s4, ms3):
+        for i in range(len(ds)):
+            item = ds[i]
+            wave = torch.from_numpy(item["waveform"][:5, None]).to(device)
+            logits = fwd(torch.from_numpy(item["image"][:5]).to(device),
+                         preprocess_audio(wave, n_frames=config.mel_frames)).float()
+            lead = logits[..., 1] - logits[..., 0]
+            masks = (lead > lead.flatten(1).median(1).values[:, None, None]).cpu().numpy()
+            for f in range(5):
+                if ds is s4:
+                    video, _, category = ds.rows[i][:3]
+                    path = Path(s4_paths(config.data_root)["dir_mask"]) / "test" / category \
+                        / video / f"{video}_{f + 1}.png"
+                else:
+                    path = Path(ds._mask(ds.videos[i], f + 1))
+                write_png(str(path), (masks[f] * 255).astype(np.uint8))
+
+
+def binary_phase(device, repo: Path) -> dict:
+    """Phase 14: the binary setup and the J&F test at their own sizes.
+    ``avss_binary`` (224x224, 2 classes, 71-wide one-hot labels, batch 16,
+    bf16) trains through ``python -m cavp_tpu_torch.main_avss_resize
+    --resize_flag`` with every kernel flag, and ``python -m
+    cavp_tpu_torch.test_avss_resize`` runs the J&F test on S4 (v1s) and MS3
+    (v1m) test splits of BINARY_JF_VIDEOS videos whose masks are the model's
+    (``relabel_binary``), loading the seeded model as a reference ``.pth``:
+    (a) and (b) as a user runs them, three processes side by side, then in
+    this process for the launch counts, the host syncs, the strict loads and
+    the numbers; (c) both entry points with ``--use_baseline``. Returns its
+    numbers."""
+    import math
+    import os
+    import re
+    import shutil
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from cavp_tpu_torch import main_avss_resize, test_avss_resize
+    from cavp_tpu_torch.config import get_config
+    from cavp_tpu_torch.data.synthetic import make_synthetic_avsbench
+    from cavp_tpu_torch.engine import runner
+    from cavp_tpu_torch.engine.optim import GROUPS, label_params
+
+    root = repo / "build" / "chip_smoke_binary"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    data, objects = root / "data", root / "objects"
+    write_train_tree(data, 224, 71)  # class masks, collapsed to binary by the setup
+    make_synthetic_avsbench(str(objects), num_videos=BINARY_JF_VIDEOS, image_size=224,
+                            splits=("test",))
+    config = get_config("avss_binary").replace(data_root=str(objects), resize_flag=True)
+    require(config.num_classes == 2 and config.image_height == 224, f"avss_binary {config}")
+    model = runner.build_model(config, device)
+    random_weights(model, config, device)
+    state_dict = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    pth, visual_pth = root / "cavp_avsobj_ss.pth", root / "visual_baseline.pth"
+    torch.save({"model": state_dict}, pth)
+    torch.save({"model": {k: v for k, v in state_dict.items()
+                          if k.startswith(("backbone.", "segment."))}}, visual_pth)
+    relabel_binary(model, config, device)
+    del model, state_dict
+    torch.cuda.empty_cache()
+    print(f"[binary] wrote the avss_binary tree ({TRAIN_VIDEOS} train, {TRAIN_TEST_VIDEOS} test "
+          f"videos), S4 and MS3 test splits of {BINARY_JF_VIDEOS} videos at 224x224 (masks from "
+          f"the model, half of each frame) and the 2-class model as {pth.name} in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    flags = [f"--{f}" for f in TRAIN_FLAGS]
+    train = ["--setup", "avss_binary", "--resize_flag", "--root_dataset_dir", str(data),
+             "--epochs", "1"]
+
+    def jf_argv(split, ckpt=pth):
+        return ["--setup", "avss_binary", "--resize_flag", "--data_root", str(objects),
+                "--avsbench_split", split, "--ckpt_path", str(ckpt)]
+
+    # (a) and (b) as a user runs them: three processes side by side
+    cwd = root / "cli"
+    cwd.mkdir(parents=True)
+    commands = {
+        "main_avss_resize": (["cavp_tpu_torch.main_avss_resize", *train, "--num_workers", "8",
+                              *flags], cwd),
+        "test_avss_resize v1s": (["cavp_tpu_torch.test_avss_resize", *jf_argv("v1s")], repo),
+        "test_avss_resize v1m": (["cavp_tpu_torch.test_avss_resize", *jf_argv("v1m")], repo)}
+    t0 = time.perf_counter()
+    procs = {}
+    for name, (args, where) in commands.items():
+        log = open(root / f"{name.replace(' ', '_')}.log", "w+")
+        procs[name] = (subprocess.Popen([sys.executable, "-m", *args], cwd=where, stdout=log,
+                                        stderr=subprocess.STDOUT,
+                                        env=dict(os.environ, PYTHONPATH=str(repo))), log)
+    for name, (proc, log) in procs.items():
+        code = proc.wait(timeout=600)
+        log.seek(0)
+        text = log.read()
+        log.close()
+        lines = [ln.split(" | INFO | ")[-1] for ln in text.splitlines() if " | INFO | " in ln
+                 and ("epoch " in ln or "|ALL|" in ln or "J&F:" in ln)]
+        if name == "main_avss_resize":
+            ok = code == 0 and len(lines) == 2 and (cwd / "checkpoints").is_dir()
+        else:
+            nums = [float(v) for v in re.findall(r"(?:mIoU|F|J&F): ([-\w.]+)", lines[-1])] \
+                if lines else []
+            ok = (code == 0 and len(nums) == 3 and all(math.isfinite(v) for v in nums)
+                  and "with no place" not in text and "did not fill" not in text)
+        require(ok, f"{name}: exit {code}\n{text[-4000:]}")
+        print(f"[binary] python -m cavp_tpu_torch.{name} exit 0: {' || '.join(lines)}")
+    print(f"[binary] the three processes side by side in {time.perf_counter() - t0:.1f} s "
+          f"of wall time")
+
+    # in this process: the train steps and the eval steps, counted
+    real = dict(init_state=runner.init_state, make_train_step=runner.make_train_step,
+                run_validation=runner.run_validation)
+    rec = dict(steps=[], syncs=[], events=[], eval_steps=[], start=None, state=None)
+
+    def init_state(*a, **kw):
+        state = real["init_state"](*a, **kw)
+        rec["state"] = state
+        rec["start"] = ({k: v.clone() for k, v in state.model.named_parameters()},
+                        state.sound_bank.clone())
+        return state
+
+    def make_train_step(*a, **kw):
+        step = real["make_train_step"](*a, **kw)
+
+        def counted(state, batch, epoch):
+            # the step on the stream, from its first kernel's turn to its
+            # last: events, no sync
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    events[0].record()
+                    state, metrics = step(state, batch, epoch)
+                    events[1].record()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            rec["events"].append(events)
+            rec["syncs"].append(sum("synchroniz" in str(w.message) for w in caught))
+            rec["steps"].append({k: float(v) for k, v in metrics.items()})
+            return state, metrics
+        return counted
+
+    def run_validation(*a, **kw):
+        stats = {}
+        res = real["run_validation"](*a, stats=stats, **kw)
+        rec["eval_steps"].append(stats["steps"])
+        return res
+
+    def train_arm(argv):
+        """One epoch in this process; returns (launches, stats, moved groups,
+        whether the sound bank moved, peak GiB)."""
+        for k in ("steps", "syncs", "events", "eval_steps"):
+            rec[k] = []
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        main_avss_resize.main(argv, device=device, stats=stats)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        state, (params0, bank0) = rec.pop("state"), rec.pop("start")
+        labels = label_params(state.model)
+        moved = {labels[n] for n, p in state.model.named_parameters()
+                 if not torch.equal(p, params0[n])}
+        bank_moved = not torch.equal(state.sound_bank, bank0)
+        rec["state"] = rec["start"] = None
+        del state, params0, bank0
+        return read_launches(), stats, moved, bank_moved, peak
+
+    def jf_arm(argv):
+        reset_launches()
+        stats, report = {}, {}
+        res = test_avss_resize.main(argv, device=device, stats=stats, report=report)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in read_launches().items() if v}
+        require(not launched, f"the J&F test launched {launched}")
+        require(not report["missing"] and not report["unexpected"],
+                f"the strict load reported {report['missing'][:5]} {report['unexpected'][:5]}")
+        require(all(math.isfinite(v) for v in res.values()) and 0 < res["miou"] < 1,
+                f"J&F results {res}")
+        require(stats["videos"] == BINARY_JF_VIDEOS and stats["steps"] == 2,
+                f"J&F loop {stats}")
+        return res, stats
+
+    runner.init_state, runner.make_train_step = init_state, make_train_step
+    runner.run_validation = run_validation
+    here = os.getcwd()
+    os.chdir(root)
+    out = {}
+    try:
+        # (a) the kernel arm, one loader thread so that the plain arm draws
+        # the same batches; no best_model written
+        argv = train + ["--num_workers", "1", "--ignore_ckpt"]
+        launches, stats, moved, bank_moved, peak = train_arm(argv + flags)
+        steps, syncs, n_eval = list(rec["steps"]), list(rec["syncs"]), sum(rec["eval_steps"])
+        step_ms = [a.elapsed_time(b) for a, b in rec["events"]]
+        want = {"mel": len(steps) + n_eval, "layer1": 3 * n_eval, "fusion": n_eval,
+                "argmax": n_eval, "fwd": len(steps), "stage_a": len(steps),
+                "stage_b": len(steps), "reduce": len(steps), "f32": 0}
+        require(len(steps) == 3 and n_eval > 0 and launches == want,
+                f"avss_binary: {len(steps)} train steps and {n_eval} eval steps launched "
+                f"{launches}, not {want}")
+        losses = [m["loss/loss"] for m in steps]
+        require(all(np.isfinite(losses)), f"losses {losses}")
+        require(syncs[1:] == [0, 0], f"host syncs in the train steps: {syncs}")
+        require(moved == set(GROUPS) and not bank_moved,
+                f"groups moved {sorted(moved)}; the sound bank moved: {bank_moved}")
+        first = steps[0]
+        print(f"[binary] avss_binary kernel arm: {len(steps)} train steps launched K2 forward "
+              f"{launches['fwd']}, backward stages {launches['stage_a']}/{launches['stage_b']}/"
+              f"{launches['reduce']}, K3 {launches['mel']} ({len(steps)} train + {n_eval} eval), "
+              f"K1 {launches['fusion']}, K4 {launches['argmax']} (2 classes), K5 "
+              f"{launches['layer1']} over {n_eval} eval steps; losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}, l_ctr_av "
+              f"{' '.join(f'{m['loss/l_ctr_av']:.4f}' for m in steps)}; host syncs {syncs} "
+              f"(the first step fills the caches); all {len(GROUPS)} groups moved, the sound "
+              f"bank not (no bank in the binary setup); the steps on the stream "
+              f"{' / '.join(f'{v:.1f}' for v in step_ms)} ms (CUDA events; the first cold)")
+        out["train"] = dict(step_ms=step_ms, steps_per_s=stats["steps"] / stats["wall_s"],
+                            frames_per_s=stats["frames"] / stats["wall_s"],
+                            wait=stats["loader_wait_s"] / stats["wall_s"], peak=peak,
+                            launches=launches)
+
+        launches, _, _, _, _ = train_arm(argv)
+        require(all(v == 0 for v in launches.values()), f"the plain arm launched {launches}")
+        report = []
+        for k in ("loss/loss", "loss/cross_entropy", "loss/l_ctr_av"):
+            got, ref = first[k], rec["steps"][0][k]
+            rel = abs(got - ref) / max(abs(ref), 1e-12)
+            report.append(f"{k} {got:.5f} against {ref:.5f} ({rel:.2e})")
+            require(rel <= LOSS_REL, "the binary kernel arm's first step is off the plain "
+                                     "arm's: " + report[-1])
+        print(f"[binary] plain arm: no kernel launched; its first step against the kernel "
+              f"arm's on the same batch (relative, limit {LOSS_REL}): " + ", ".join(report))
+
+        # (b) the J&F test with every eval kernel flag given: none launches
+        eval_flags = [f"--{f}" for f in ALL_FLAGS]
+        for split in ("v1s", "v1m"):
+            res, stats = jf_arm(jf_argv(split) + eval_flags)
+            out[split] = dict(res=res, videos_per_s=stats["videos"] / stats["wall_s"],
+                              wait=stats["loader_wait_s"] / stats["wall_s"])
+            print(f"[binary] J&F test {split}: mIoU {res['miou']:.4f}, F {res['F_score']:.4f}, "
+                  f"J&F {res['J&F']:.4f}; {stats['videos']} videos in {stats['steps']} steps of "
+                  f"4 ({stats['wall_s']:.3f} s, {out[split]['videos_per_s']:.1f} videos/s with "
+                  f"the loader, wait {100 * out[split]['wait']:.1f}%); strict load clean; no "
+                  f"kernel launched, as in the JAX package, with every kernel flag given")
+
+        # (c) --use_baseline: only K3, on the eval steps
+        launches, stats, moved, _, _ = train_arm(argv + flags + ["--use_baseline"])
+        n_eval = sum(rec["eval_steps"])
+        want = dict.fromkeys(launches, 0)
+        want["mel"] = n_eval
+        require(launches == want and n_eval > 0,
+                f"the baseline launched {launches} over {n_eval} eval steps")
+        require(all(set(m) == {"loss/loss", "loss/cross_entropy"} and np.isfinite(m["loss/loss"])
+                    for m in rec["steps"]) and moved == {"seg_decay", "seg_nodecay",
+                                                         "bkb_decay", "bkb_nodecay"},
+                f"baseline steps {rec['steps']}, groups moved {sorted(moved)}")
+        base_jf = {}
+        for split in ("v1s", "v1m"):
+            base_jf[split], _ = jf_arm(jf_argv(split, visual_pth) + ["--use_baseline",
+                                                                     *eval_flags])
+        print(f"[binary] --use_baseline: {len(rec['steps'])} CE train steps (losses "
+              f"{' '.join(f'{m['loss/loss']:.4f}' for m in rec['steps'])}) launched nothing, "
+              f"its {n_eval} eval steps K3 {launches['mel']} and no K1, K2, K4 or K5; the J&F "
+              f"test (strict load of the visual weights, no launch): v1s J&F "
+              f"{base_jf['v1s']['J&F']:.4f}, v1m {base_jf['v1m']['J&F']:.4f}")
+    finally:
+        os.chdir(here)
+        runner.init_state, runner.make_train_step = real["init_state"], real["make_train_step"]
+        runner.run_validation = real["run_validation"]
+    shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -2000,6 +2337,16 @@ def main() -> int:
           f"{trained['cold']['steps_per_s']:.3f} steps/s), peak "
           f"{trained['peak']:.2f} GiB, process wall time {trained['cli_s']:.1f} s; "
           f"{card_line()}")
+    # 14. the binary setup and the J&F test: the counts are read from its runs only
+    binary = binary_phase(device, repo)
+    print(f"[binary] avss_binary training entry point at 224x224, batch 16, bf16, every kernel "
+          f"flag, one 3-step epoch in this process (smoke readings): "
+          f"{binary['train']['steps_per_s']:.3f} steps/s, {binary['train']['frames_per_s']:.1f} "
+          f"frames/s with the loader (one thread, wait {100 * binary['train']['wait']:.1f}%), "
+          f"peak {binary['train']['peak']:.2f} GiB, warm steps on the stream "
+          f"{' / '.join(f'{v:.1f}' for v in binary['train']['step_ms'][1:])} ms; the J&F test "
+          f"{binary['v1s']['videos_per_s']:.1f} (S4) / {binary['v1m']['videos_per_s']:.1f} "
+          f"(MS3) videos/s with the loader; {card_line()}")
 
     train_source = "cavp_tpu_torch/csrc/fusion_train_kernel.cu"
     print(json.dumps({"kernels": [
@@ -2046,7 +2393,11 @@ def main() -> int:
          "launches": eval_launches["argmax"], "max_abs_err": ares["bf16"],
          "ms": ares["kernel"], "plain_ms": ares["plain"],
          "bound_ms": ares["bound"][0], "bound_by": ares["bound"][1],
-         "library_ms": ares["library"]},
+         "library_ms": ares["library"],
+         "launches_binary_setup": binary["train"]["launches"]["argmax"],
+         "ms_2_classes": ares["kernel_2"], "plain_ms_2_classes": ares["plain_2"],
+         "bound_ms_2_classes": ares["bound_2"][0],
+         "library_ms_2_classes": ares["library_2"]},
         {"name": "fused_layer1", "route": "cuda",
          "source": "cavp_tpu_torch/csrc/layer1_kernel.cu",
          "replaces": "cavp_tpu/ops/pallas/layer1_kernel.py:153",

@@ -100,14 +100,24 @@ def test_flags_give_the_jax_package_config(argv):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--setup", "avss_binary"], NotImplementedError, "Queue 1 item 4"),
+    (["--setup", "avss_binary", "--data_root", "/objects", "--avsbench_split", "v1s",
+      "--resize_flag"], None, None),
     (["--setup", "vpo_ms"], NotImplementedError, "Queue 1 item 5"),
-    (["--setup", "avss", "--use_baseline"], NotImplementedError, "Queue 1 item 4"),
+    (["--setup", "avss", "--use_baseline"], None, None),
     (["--setup", "avss", "--wandb_mode", "online"], NotImplementedError, "Queue 1 item 3"),
     (["--setup", "coco"], ValueError, "Unknown setup"),  # the parser's default setup
     (["--setup", "avss", "--use_tfdata"], SystemExit, None),  # a TPU-only flag
 ], ids=["avss_binary", "vpo", "baseline", "wandb", "unknown", "tpu-only"])
 def test_setups_and_flags_not_ported_raise(argv, exc, match):
+    """The setups and flags the port does not have raise; those it has
+    since ROADMAP.md Queue 1 item 4 (``avss_binary``, ``--use_baseline``)
+    give the JAX package's config, field for field."""
+    if exc is None:
+        got, ref = load_args_and_config(argv), jax_load_args_and_config(argv)
+        for f in (f for f in Config.__dataclass_fields__ if f != "steps_per_epoch"):
+            assert getattr(got, f) == getattr(ref, f), f
+        assert got.data_path == ref.data_path
+        return
     with pytest.raises(exc, match=match):
         load_args_and_config(argv)
 
