@@ -108,7 +108,7 @@ _SETUP_OWNED = {
 }
 
 # flags of features not ported yet, and the ROADMAP.md item that ports each
-_NOT_PORTED_FLAGS = {"use_multi_source": "Queue 1 item 5", "wandb_mode": "Queue 1 item 3"}
+_NOT_PORTED_FLAGS = {"wandb_mode": "Queue 1 item 3"}
 
 
 def _explicit_flags(argv: Sequence[str]) -> set:
@@ -143,9 +143,11 @@ def load_args_and_config(argv: Optional[Sequence[str]] = None) -> Config:
         updates[key] = value
     cfg = cfg.replace(**updates)
 
-    # derived, as in the reference entry points: lr *= gpus, and the 71
-    # classes of the full avss split
+    # derived, as in the reference entry points: lr *= gpus, the 71
+    # classes of the full avss split and the VPO setups' class count
     cfg = cfg.replace(lr=cfg.lr * cfg.gpus)
     if cfg.setup == "avss" and cfg.avsbench_split == "all":
         cfg = cfg.replace(num_classes=71)
+    if cfg.use_vpo:
+        cfg = cfg.replace(num_classes=cfg.vpo_num_classes)
     return cfg

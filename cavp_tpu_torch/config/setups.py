@@ -1,13 +1,12 @@
-"""Per-setup configuration: the fields the ported avss slices read.
+"""Per-setup configuration: the fields the ported slices read.
 
 Mirrors ``cavp_tpu/config/setups.py``: the same field names, defaults
 and ``get_config`` dispatch, cut to what the eval, serving and train
-steps, the training entry points (``cavp_tpu_torch.main_avss[_resize]``)
-and the evaluation entry points (``cavp_tpu_torch.test_avs_semantic``,
-``cavp_tpu_torch.test_avss_resize``) use: the ``avss`` and ``avss_binary``
-setups. The TPU-only knobs have no counterpart; the setups the port does
-not have yet raise ``NotImplementedError`` naming their ``ROADMAP.md``
-item.
+steps, the training entry points (``cavp_tpu_torch.main_avss[_resize]``,
+``cavp_tpu_torch.main_vpo_{mono,stereo}``) and the evaluation entry
+points (``cavp_tpu_torch.test_avs_semantic``,
+``cavp_tpu_torch.test_avss_resize``) use: the ``avss``, ``avss_binary``
+and ``vpo_{ss,ms,msmi}`` setups. The TPU-only knobs have no counterpart.
 """
 
 from __future__ import annotations
@@ -15,7 +14,13 @@ from __future__ import annotations
 import dataclasses
 import os
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
+
+from cavp_tpu_torch.config.class_list import (
+    COCO_CLASS_DICT,
+    INDEX_TABLE_AVS,
+    INDEX_TABLE_COCO,
+)
 
 
 @dataclass
@@ -40,6 +45,13 @@ class Config:
     root_dataset_dir: str = "../audio_visual"  # holds avsbench_semantic/
     dataset_name: str = "avsbench_data_single_yh/"
     data_root: str = ""  # holds avsbench_data/ (the S4 and MS3 trees)
+    use_vpo: bool = False
+    vgg_root: str = "vggsound_bench/VGGSound"  # holds audios/<vgg_file>.wav
+    vpo_root: str = ""  # holds the VPO CSVs and the COCO data/ and mask/ trees
+    vpo_num_classes: int = 22
+    index_table: List[str] = field(default_factory=lambda: list(INDEX_TABLE_AVS))
+    class_dict: Optional[dict] = None  # COCO id -> class name of the VPO masks
+    replace_name: bool = False
 
     # --- model ---
     num_classes: int = 71
@@ -72,6 +84,9 @@ class Config:
     num_workers: int = 16  # loader threads
     use_baseline: bool = False  # the visual-only VisualModel, CE only
     avsbench_split: str = "all"
+    # stored only, as in the JAX package: the VPO entry points take the
+    # multi-source mode from the setup's name
+    use_multi_source: bool = False
     resize_flag: bool = False  # resize frames and masks to image_height x width
     # exact audio-tower dedup on the train path (VGG tower, no BatchNorm):
     # the tower runs on B + floor(B*ow_rate) clips and the shuffled half
@@ -112,6 +127,22 @@ class Config:
         return os.path.join(self.root_dataset_dir, self.dataset_name)
 
     @property
+    def vgg_data_path(self) -> str:
+        return os.path.join(self.root_dataset_dir, self.vgg_root)
+
+    @property
+    def vpo_data_path(self) -> str:
+        return os.path.join(self.root_dataset_dir, self.vpo_root)
+
+    @property
+    def coco_img_root(self) -> str:
+        return os.path.join(self.vpo_data_path, "data")
+
+    @property
+    def coco_mask_root(self) -> str:
+        return os.path.join(self.vpo_data_path, "mask")
+
+    @property
     def mel_frames(self) -> int:
         """Trainer-mel time frames kept: 96 for 1 s audio, 300 for 3 s."""
         return 96 if self.audio_len == 1.0 else 300
@@ -133,18 +164,26 @@ def _avss_binary() -> Config:
                   dataset_name="avsbench_data_single_plus/", num_classes=2)
 
 
-SETUPS = {"avss": _avss, "avss_binary": _avss_binary}
+def _vpo(variant: str) -> Config:
+    """VPO-SS, VPO-MS or VPO-MSMI (``config_vpo_{ss,ms,msmi}.py``): COCO
+    images with VGGSound clips of 3 s, a ResNet-101 at output stride 8 and
+    the ResNet-18 audio tower. ``num_classes`` is 24 here; the command
+    line pins it to ``vpo_num_classes`` (``config/flags.py``)."""
+    return Config(
+        setup=f"vpo_{variant}", audio_len=3.0, dataset_name="avsbench_data_single_plus/",
+        use_vpo=True, index_table=list(INDEX_TABLE_COCO), class_dict=dict(COCO_CLASS_DICT),
+        vpo_root=f"VPO/VPO-{variant.upper()}/", vpo_num_classes=22, visual_backbone=101,
+        last_three_dilation_stride=[False, True, True],
+        audio_backbone="18",  # 3 s of audio: the ResNet-18 tower
+        epochs=80, weight_decay=5e-4, num_classes=24, num_workers=8)
 
-# the JAX package's other setups, and the ROADMAP.md item that ports each
-NOT_PORTED = {"vpo_ss": "Queue 1 item 5", "vpo_ms": "Queue 1 item 5",
-              "vpo_msmi": "Queue 1 item 5"}
+
+SETUPS = {"avss": _avss, "avss_binary": _avss_binary, "vpo_ss": lambda: _vpo("ss"),
+          "vpo_ms": lambda: _vpo("ms"), "vpo_msmi": lambda: _vpo("msmi")}
 
 
 def get_config(setup: str) -> Config:
     """Return the base config for a ``--setup`` name."""
-    if setup in NOT_PORTED:
-        raise NotImplementedError(
-            f"setup {setup!r} is not ported yet (ROADMAP.md {NOT_PORTED[setup]})")
     try:
         return SETUPS[setup]()
     except KeyError:

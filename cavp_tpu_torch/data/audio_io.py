@@ -2,8 +2,10 @@
 
 The loader's audio path of the reference
 (``dataset/avss/audio/audio_dataset.py:31-65``): wav decode, resample to
-16 kHz, center-crop or tile to ``audio_len`` seconds, mono mean. Stdlib
-``wave`` and scipy's polyphase resampler, numpy out.
+16 kHz, center-crop or tile to ``audio_len`` seconds, mono mean; and the
+VPO datasets' stereo synthesis, amplitude panning and the mixture of
+several sources (``dataset/vpo_stereo/*/audio/audio_dataset.py:51-71``).
+Stdlib ``wave`` and scipy's polyphase resampler, numpy out.
 """
 
 from __future__ import annotations
@@ -68,3 +70,22 @@ def load_audio(path: str, audio_len: float) -> np.ndarray:
     wave = resample(wave, sr)
     wave = crop_audio(wave, audio_len)
     return np.mean(wave, axis=0, keepdims=True).astype(np.float32)
+
+
+def pan_stereo(wave: np.ndarray, position: float, weight: float = 1.0) -> np.ndarray:
+    """[2, L] amplitude panning of the mono mean: left ``w (1 - pos)``,
+    right ``w pos``
+    (``dataset/vpo_stereo/single_source/audio/audio_dataset.py:57-68``)."""
+    mono = wave.mean(axis=0) if wave.ndim == 2 else wave
+    left = weight * (1.0 - position) * mono
+    right = weight * position * mono
+    return np.stack([left, right]).astype(np.float32)
+
+
+def mix_sources(waves) -> np.ndarray:
+    """The sum of several panned or mono sources, in order, as float32
+    (``dataset/vpo_stereo/multi_source/audio/audio_dataset.py:51-71``)."""
+    out = np.zeros_like(waves[0])
+    for w in waves:
+        out = out + w
+    return out.astype(np.float32)

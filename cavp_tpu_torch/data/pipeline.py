@@ -5,8 +5,9 @@ A thread pool decodes items ahead of the device step, in place of the
 reference's ``torch.utils.data.DataLoader(num_workers=16, pin_memory)``,
 and collation stacks them into dense
 numpy batches: single-frame train batches (one random available frame a
-video), and padded [videos x 10 frames] eval stacks with a validity mask
-in place of the reference's batch-1 per-frame loop. Batches leave the
+video, or the one frame of a VPO item), padded [videos x 10 frames] eval
+stacks with a validity mask in place of the reference's batch-1 per-frame
+loop, and single-frame eval batches, every frame valid (VPO). Batches leave the
 loader as numpy; the runner moves them to the card.
 """
 
@@ -143,6 +144,24 @@ def collate_train_videos(items, rng: Optional[random.Random] = None
         names.append(it["name"])
     return {"image": np.stack(images), "waveform": np.stack(waves),
             "pix_label": np.stack(pix), "img_label": np.stack(img_lab), "name": names}
+
+
+def collate_train_frames(items) -> Dict[str, np.ndarray]:
+    """Single-frame datasets (VPO): the items stacked, a frame axis of one
+    squeezed where an item has it."""
+    out = collate_stack(items)
+    for k, ndim in (("image", 5), ("pix_label", 4), ("img_label", 3), ("waveform", 4)):
+        if out[k].ndim == ndim:
+            out[k] = out[k][:, 0]
+    return out
+
+
+def collate_eval_frames(items) -> Dict[str, np.ndarray]:
+    """Single-frame eval collation (the VPO validation,
+    trainer_cavp_vpo_mono.py:260-320): every frame valid."""
+    out = collate_train_frames(items)
+    out["valid"] = np.ones((out["image"].shape[0],), np.float32)
+    return out
 
 
 def collate_eval_videos(items) -> Dict[str, np.ndarray]:

@@ -3,7 +3,9 @@ AVSBench-Semantics tree, so the dataset, the loader and the evaluation
 entry point run on real files, and in-memory batches with a setup's exact
 shapes. The same seeds give the same pixels, waveforms and draws as the
 JAX package's. :func:`make_synthetic_avsbench` writes mini S4 and MS3
-trees for the J&F test entry point (the JAX package has no such writer)."""
+trees for the J&F test entry point and :func:`make_synthetic_vpo` mini
+VPO-SS, VPO-MS and VPO-MSMI trees for the VPO training entry points (the
+JAX package has neither writer)."""
 
 from __future__ import annotations
 
@@ -133,6 +135,123 @@ def make_synthetic_avsbench(data_root: str, num_videos: int = 2, image_size: int
         with open(paths["anno_csv"], "w") as f:
             f.write("\n".join(rows) + "\n")
     return data_root
+
+
+# (COCO id, name) of the VPO classes the VPO writer draws from, by VPO
+# index 1-5 (config/class_list.py), so a model of 6 classes holds them all
+VPO_CATEGORIES = ((5, "airplane"), (94, "baby"), (16, "bird"), (6, "bus"), (3, "car"))
+VPO_CSV_COLUMNS = ("img_Id", "ann_Ids", "cateName", "cateId", "vgg_file", "audio_pos",
+                   "split", "multi_instance")
+
+
+def make_synthetic_vpo(root: str, num_train: int = 6, num_test: int = 2,
+                       image_size: int = 64, seed: int = 0) -> str:
+    """Write mini VPO trees under ``root`` (the setups' ``root_dataset_dir``);
+    returns ``root``.
+
+    - ``VPO/VPO-SS/``: one row an image, its category's COCO images under
+      ``data/<cateName>/<img>.jpg`` and masks under
+      ``mask/<cateName>/<img>_<ann>.png`` (8-bit, COCO ids);
+    - ``VPO/VPO-MS/``: images of 1-3 sources, one row a source, flat
+      ``data/`` and ``mask/`` trees (every row's mask holds every source);
+    - ``VPO/VPO-MSMI/``: VPO-MS's rows with ``multi_instance`` 1 and 0 in
+      turn; the images of the rows with 1 are written here (with other
+      pixels), those with 0 are read from VPO-MS;
+    - ``vggsound_bench/VGGSound/audios/<vgg_file>.wav``: 3.5 s, a tone a
+      category (one of them stereo at 22.05 kHz, so the resampler and the
+      channel mean run).
+
+    Each tree has its ``vpo_*_data_{mono,stereo}.csv`` (the same rows).
+    Test images are all ``image_size`` square (the VPO validation stacks
+    them unresized); train images are of mixed sizes, some smaller than
+    ``image_size``, so the pad of the train crop runs."""
+    rng = np.random.RandomState(seed)
+    categories = VPO_CATEGORIES
+    audio_dir = os.path.join(root, "vggsound_bench", "VGGSound", "audios")
+    os.makedirs(audio_dir, exist_ok=True)
+    t = np.linspace(0, 3.5, 56000, endpoint=False)
+    for i, (_, name) in enumerate(categories):
+        tone = 0.3 * np.sin(2 * np.pi * (250 + 60 * i) * t)
+        if i == 0:
+            t2 = np.linspace(0, 3.5, int(3.5 * 22050), endpoint=False)
+            wave = 0.3 * np.sin(2 * np.pi * 250 * t2)
+            write_wav(os.path.join(audio_dir, f"vgg_{i}.wav"),
+                      np.stack([wave, 0.5 * wave]).astype(np.float32), sr=22050)
+        else:
+            write_wav(os.path.join(audio_dir, f"vgg_{i}.wav"), tone[None].astype(np.float32))
+    train_sizes = ((image_size * 3 // 4, image_size), (image_size, image_size * 5 // 4),
+                   (image_size // 2, image_size * 3 // 4), (image_size, image_size))
+
+    def picture(h, w, objects):
+        """A noise frame with a tinted box per (category index, COCO id),
+        and the 8-bit mask of the boxes' COCO ids."""
+        img = rng.randint(0, 255, (h, w, 3), dtype=np.uint8)
+        mask = np.zeros((h, w), np.uint8)
+        for k, (cat, cid) in enumerate(objects):
+            y0 = int(rng.randint(0, max(h // 2, 1)))
+            x0 = int(rng.randint(0, max(w // 2, 1)))
+            box = (slice(y0, y0 + h // 3 + 1), slice(x0, x0 + w // 3 + 1))
+            tint = np.array([(cat * 53) % 200 + 55, (cat * 101) % 200 + 55,
+                             (cat * 179) % 200 + 55], np.int32)
+            img[box] = (img[box].astype(np.int32) // 4 + tint).clip(0, 255).astype(np.uint8)
+            mask[box] = cid
+        return img, mask
+
+    def write_csv(tree, rows):
+        for suffix in ("mono", "stereo"):
+            name = os.path.basename(tree.rstrip("/")).lower().replace("-", "_")
+            with open(os.path.join(tree, f"{name}_data_{suffix}.csv"), "w") as f:
+                f.write(",".join(VPO_CSV_COLUMNS) + "\n")
+                for r in rows:
+                    f.write(",".join(str(r[c]) for c in VPO_CSV_COLUMNS) + "\n")
+
+    vpo = os.path.join(root, "VPO")
+    splits = ["train"] * num_train + ["val"] * num_test
+    # VPO-SS: one source an image, per-category directories
+    tree, rows = os.path.join(vpo, "VPO-SS"), []
+    for n, split in enumerate(splits):
+        cat = n % len(categories)
+        cid, name = categories[cat]
+        h, w = train_sizes[n % len(train_sizes)] if split == "train" else (image_size,) * 2
+        img, mask = picture(h, w, [(cat, cid)])
+        img_id, ann = 1000 + n, 5000 + n
+        for sub, data, fn in (("data", img, f"{img_id:012d}.jpg"),
+                              ("mask", mask, f"{img_id:012d}_{ann:012d}.png")):
+            os.makedirs(os.path.join(tree, sub, name), exist_ok=True)
+            path = os.path.join(tree, sub, name, fn)
+            write_jpeg(path, data) if sub == "data" else write_index_png(path, data)
+        rows.append(dict(img_Id=img_id, ann_Ids=ann, cateName=name, cateId=cid,
+                         vgg_file=f"vgg_{cat}", audio_pos=round(float(rng.rand()), 3),
+                         split=split, multi_instance=1))
+    write_csv(tree, rows)
+    # VPO-MS and VPO-MSMI: 1-3 sources an image, flat directories
+    ms, msmi = os.path.join(vpo, "VPO-MS"), os.path.join(vpo, "VPO-MSMI")
+    for tr in (ms, msmi):
+        for sub in ("data", "mask"):
+            os.makedirs(os.path.join(tr, sub), exist_ok=True)
+    ms_rows, msmi_rows = [], []
+    for n, split in enumerate(splits):
+        k = 1 + n % 3
+        cats = [int(c) for c in rng.choice(len(categories), k, replace=False)]
+        objects = [(c, categories[c][0]) for c in cats]
+        h, w = train_sizes[n % len(train_sizes)] if split == "train" else (image_size,) * 2
+        img_id, multi_instance = 2000 + n, n % 2
+        anns = [6000 + 10 * n + j for j in range(k)]
+        trees = (ms, msmi) if multi_instance else (ms,)
+        for tr in trees:
+            img, mask = picture(h, w, objects)
+            write_jpeg(os.path.join(tr, "data", f"{img_id:012d}.jpg"), img)
+            for ann in anns:
+                write_index_png(os.path.join(tr, "mask", f"{img_id:012d}_{ann:012d}.png"), mask)
+        for c, ann in zip(cats, anns):
+            row = dict(img_Id=img_id, ann_Ids=ann, cateName=categories[c][1],
+                       cateId=categories[c][0], vgg_file=f"vgg_{c}",
+                       audio_pos=round(float(rng.rand()), 3), split=split, multi_instance=1)
+            ms_rows.append(row)
+            msmi_rows.append(dict(row, multi_instance=multi_instance))
+    write_csv(ms, ms_rows)
+    write_csv(msmi, msmi_rows)
+    return root
 
 
 def synthetic_train_batch(config, batch_size: Optional[int] = None, seed: int = 0

@@ -1,7 +1,8 @@
 """Weight bridge from the JAX package's variables to the port's state dict.
 
-The DeepLabV3Plus + VGG subset of the naming grammar of
-``cavp_tpu/engine/convert.py:37-111``, inverted: flax paths in, the
+The DeepLabV3Plus subset of the naming grammar of
+``cavp_tpu/engine/convert.py:37-111``, with both audio towers (VGG, and
+the torchvision ResNet-18 of the VPO setups), inverted: flax paths in, the
 reference's state-dict names out. Layouts: conv HWIO -> OIHW, dense
 [in, out] -> [out, in], BN ``scale``/``bias`` params and ``mean``/``var``
 batch stats -> ``weight``/``bias``/``running_mean``/``running_var``.
@@ -43,8 +44,23 @@ def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
             yield path, v
 
 
-def _module_name(path: str) -> Optional[str]:
-    """Flax module path -> torch module name (None: not in the subset)."""
+def _audio_resnet_name(rest: str) -> Optional[str]:
+    """``audio_net.net.<rest>`` of the ResNet-18 tower -> its torchvision
+    name under ``audio_backbone.backbone``."""
+    if rest in ("conv1", "bn1", "fc"):
+        return f"audio_backbone.backbone.{rest}"
+    m = re.fullmatch(r"layer(\d)_(\d)\.(\w+)", rest)
+    if m:
+        tail = {"downsample_conv": "downsample.0",
+                "downsample_bn": "downsample.1"}.get(m.group(3), m.group(3))
+        return f"audio_backbone.backbone.layer{m.group(1)}.{m.group(2)}.{tail}"
+    return None
+
+
+def _module_name(path: str, audio_resnet: bool = False) -> Optional[str]:
+    """Flax module path -> torch module name (None: not in the subset).
+    ``audio_resnet``: the audio tower is the ResNet-18 (whose ``conv1``
+    would otherwise read as the VGG stack's second conv)."""
     if path.startswith("backbone."):
         rest = path[len("backbone."):]
         if rest in _STEM:
@@ -76,6 +92,8 @@ def _module_name(path: str) -> Optional[str]:
         rest = path[len("audio_net."):]
         if rest == "cls_head":
             return "audio_backbone.cls_head"
+        if audio_resnet:
+            return _audio_resnet_name(rest[len("net."):]) if rest.startswith("net.") else None
         m = re.fullmatch(r"net\.conv(\d)", rest)
         if m:
             return f"audio_backbone.backbone.features.{_VGG_CONV_IDX[int(m.group(1))]}"
@@ -96,16 +114,18 @@ def named_tensors_from_jax(tree: Dict[str, Any], dtype=np.float32
     state-dict names, in the port's layouts: conv kernels HWIO -> OIHW,
     dense kernels [in, out] -> [out, in].
 
-    Raises ``KeyError`` for a leaf outside the DeepLabV3Plus + VGG
-    grammar, so nothing is dropped silently."""
+    Raises ``KeyError`` for a leaf outside the DeepLabV3Plus grammar,
+    so nothing is dropped silently."""
     out: Dict[str, torch.Tensor] = {}
-    for path, value in _flatten(tree):
+    leaves = list(_flatten(tree))
+    audio_resnet = any(p.startswith("audio_net.net.layer") for p, _ in leaves)
+    for path, value in leaves:
         value = np.array(value, dtype)  # a writable copy
         if path.startswith("cross_att.pos_embed"):
             out[path] = torch.from_numpy(value)
             continue
         mod, leaf = path.rsplit(".", 1)
-        name = _module_name(mod)
+        name = _module_name(mod, audio_resnet)
         if name is None or leaf not in _LEAF:
             raise KeyError(f"no port name for JAX variable {path!r}")
         if leaf == "kernel":

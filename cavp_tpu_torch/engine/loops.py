@@ -1,11 +1,12 @@
 """The train step, the eval step and its forwards
 (``cavp_tpu/engine/loops.py``).
 
-- :func:`make_train_step`: the avss train step: the CoroCL batch
-  construction (shuffle, overwrite-miss-match, SoundBank FIFO, matched and
-  shuffled audio over one visual batch), CE + CoroCL, backward, and the
-  multi-group SGD/Adam update; with ``variant="baseline"`` the
-  ``--use_baseline`` step (``VisualModel``, CE only);
+- :func:`make_train_step`: the avss, vpo_mono and vpo_stereo train steps:
+  the CoroCL batch construction (shuffle, overwrite-miss-match, SoundBank
+  FIFO, matched and shuffled audio over one visual batch), CE + CoroCL,
+  backward, and the multi-group SGD/Adam update; with
+  ``variant="baseline"`` the ``--use_baseline`` step (``VisualModel``, CE
+  only);
 - :func:`make_inference_forward`: logits for the serving path;
 - :func:`make_eval_pred_forward`: the int32 argmax mask the metrics read;
 - :func:`make_eval_step`: the batched validation step over padded frame
@@ -98,28 +99,40 @@ def make_train_step(model, optimizers, config, *, variant: str = "avss") -> Call
     A test can fix every draw through the batch: ``shuffle_idx`` [B], the
     uniform scores ``ow_scores`` [B] of the overwrite and
     ``corocl_scores`` [class_slots + 2, B*h*w] of the CoroCL sampler, and
-    a precomputed ``mel`` ([2B,T,64,Ca], matched then shuffled). Without
-    them the draws come from ``state.generator``.
+    a precomputed ``mel`` ([2B,T,64,Ca], matched then shuffled; [B,...]
+    for ``vpo_stereo``). Without them the draws come from
+    ``state.generator``.
 
-    ``variant="baseline"``: the ``--use_baseline`` step
+    ``variant``: ``"avss"``; ``"vpo_mono"`` (the wave bank and the
+    overwrite, the tower on the 2B clips); ``"vpo_stereo"`` (the overwrite
+    of the labels only, without the background-only samples, no bank, the
+    tower on the B clips and the shuffled half a feature gather);
+    ``"baseline"``, the ``--use_baseline`` step
     (:func:`_make_baseline_train_step`).
     """
     if variant == "baseline":
         return _make_baseline_train_step(model, optimizers)
-    if variant != "avss":
-        raise NotImplementedError(
-            f"variant {variant!r} is not ported yet: the vpo steps come with "
-            "the variants (ROADMAP.md Queue 1 item 5, P8)")
+    if variant not in ("avss", "vpo_mono", "vpo_stereo"):
+        raise ValueError(f"unknown train-step variant {variant!r}")
     if getattr(config, "extra_losses", None):
         raise NotImplementedError(
-            "extra_losses are not ported yet (ROADMAP P10)")
+            "extra_losses are not ported yet (ROADMAP.md Queue 1 item 7)")
     n_frames = config.mel_frames
     plain_avss = config.avsbench_split == "all" and config.setup != "avss_binary"
-    use_wave_bank = plain_avss
-    use_overwrite = plain_avss
+    # the wave bank: avss (but for the binary and single-subset runs) and
+    # vpo_mono; the overwrite: those and vpo_stereo, which keeps only the
+    # label side of it and drops the background-only samples
+    use_wave_bank = variant == "vpo_mono" or (variant == "avss" and plain_avss)
+    use_overwrite = variant != "avss" or plain_avss
+    filter_bg_only = variant == "vpo_stereo"
+    # vpo_stereo's audio convention (trainer_cavp_vpo_stereo.py:211): the
+    # tower runs on the B unshuffled clips and the shuffled half is the
+    # feature gather fea_a[shuffle_idx], so its train-mode BatchNorm sees B
+    # clips; the others run it on the 2B matched and shuffled clips
+    gather_audio = variant == "vpo_stereo"
     use_fused_fusion = (config.use_pallas_fusion_train
                         and getattr(model, "seg_model", "") == "DeepLabV3Plus")
-    dedup_audio = config.audio_backbone == "vgg" and config.audio_dedup
+    dedup_audio = variant == "avss" and config.audio_backbone == "vgg" and config.audio_dedup
 
     def train_step(state: TrainState, batch, epoch) -> Tuple[TrainState, Dict]:
         if state.model is not model or state.optimizers is not optimizers:
@@ -151,7 +164,8 @@ def make_train_step(model, optimizers, config, *, variant: str = "avss") -> Call
         if use_overwrite:
             ow = overwrite_miss_match(if_match, shuffle_img_label, img_label,
                                       config.ow_rate, scores=batch.get("ow_scores"),
-                                      generator=gen, enabled=ow_flag)
+                                      generator=gen, filter_bg_only=filter_bg_only,
+                                      enabled=ow_flag)
             if_match = ow.if_match
             if use_wave_bank:
                 change_mask = ow.change_mask & ow_flag
@@ -166,11 +180,14 @@ def make_train_step(model, optimizers, config, *, variant: str = "avss") -> Call
         # the shuffled half is a permutation of the matched one except for
         # the at most floor(B*ow_rate) bank-overwritten rows: the tower
         # runs on B + K clips and the shuffled half is a feature gather.
-        audio_gather_idx = None
+        audio_gather_idx = shuffle_idx if gather_audio else None
         if "mel" in batch:
-            audio = batch["mel"]  # [2B, ...]: the 2B convention
+            # [B, ...] under the gather convention, else [2B, ...]
+            audio = batch["mel"]
         else:
-            if dedup_audio:
+            if gather_audio:
+                input_wave = waveform
+            elif dedup_audio:
                 K = (min(B, int(B * config.ow_rate))
                      if (use_overwrite and use_wave_bank) else 0)
                 if K > 0:

@@ -6,7 +6,8 @@ tensor:
 
 - :func:`update_bank`: zero the background label; a sample with exactly
   one remaining source class is enqueued FIFO into that class's row, in
-  batch order (the avss rule);
+  batch order (the avss rule), or, with ``per_label``, into the row of
+  each of its source classes (the VPO rule);
 - :func:`overwrite_miss_match`: of the mismatched pairs a random
   ``ow_rate`` fraction becomes *matched* pairs: marked matched with the
   original labels, their shuffled waveform replaced by the oldest banked
@@ -46,30 +47,36 @@ def single_source_class(img_label: torch.Tensor) -> Tuple[torch.Tensor, torch.Te
 def update_bank(bank: torch.Tensor, items: torch.Tensor, img_label: torch.Tensor,
                 per_label: bool = False) -> torch.Tensor:
     """FIFO-enqueue ``items`` [B, dim] by class, in batch order; returns
-    the new bank.
+    the new bank. ``per_label=False`` (the avss rule): a sample with one
+    source class enqueues into that class's row; ``per_label=True`` (the
+    VPO rule, ``trainer_cavp_vpo_stereo.py:38-54``): every sample enqueues
+    into the row of each of its source classes.
 
     Rows are independent, so with m_c items entering row c the result is
     ``concat(row, items_of_c)[m_c : m_c + N]``: the old entries move up by
     m_c and the item of rank r lands at ``N + r - m_c`` (dropped when
     that is negative: more than N entered and it is not among the newest
     N)."""
-    if per_label:
-        raise NotImplementedError(
-            "per_label=True is the VPO rule; it comes with the variants (ROADMAP P8)")
     C, N, _ = bank.shape
     dev = bank.device
-    cls, single = single_source_class(img_label)
-    onehot = torch.nn.functional.one_hot(cls, C) * single[:, None].long()   # [B, C]
+    if per_label:
+        enq = img_label > 0
+        enq[:, 0] = False                                                  # [B, C]
+    else:
+        cls, single = single_source_class(img_label)
+        enq = torch.nn.functional.one_hot(cls, C).bool() & single[:, None]
+    onehot = enq.long()
     m = onehot.sum(0)                                                      # [C]
-    rank = ((onehot.cumsum(0) - onehot) * onehot).sum(1)                   # [B]
+    rank = onehot.cumsum(0) - onehot                                       # [B, C]
     src = (torch.arange(N, device=dev)[None, :] + m[:, None]).clamp_max(N - 1)
     moved = torch.gather(bank, 1, src[:, :, None].expand(-1, -1, bank.shape[2]))
     # one spare row takes the items that do not enter
     out = torch.cat([moved, bank.new_zeros((1,) + tuple(bank.shape[1:]))])
-    pos = N + rank - m[cls]
-    enters = single & (pos >= 0)
-    out.index_put_((torch.where(enters, cls, C), torch.where(enters, pos, 0)),
-                   items.to(bank.dtype))
+    pos = N + rank - m[None, :]
+    enters = enq & (pos >= 0)
+    rows = torch.where(enters, torch.arange(C, device=dev)[None, :], C)
+    out.index_put_((rows, torch.where(enters, pos, 0)),
+                   items.to(bank.dtype)[:, None, :].expand(-1, C, -1))
     return out[:C]
 
 

@@ -44,18 +44,24 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
 8. holds the log-mel kernel against the function in float64, beside its
    plain version and the unfused ``preprocess_audio`` (float32, 120, 8, 16
    and 80 rows of 16000 samples, a frame count that is no multiple of the kernel's
-   tile, a tone over a noise floor and the 60-7000 Hz band; two launches
-   bit-equal), and times it beside the plain version, the unfused
+   tile, a tone over a noise floor, the 60-7000 Hz band, and the VPO setups'
+   32 rows of 48000 samples -> 300 frames, also as 16 stereo clips through
+   ``preprocess_audio``, whose rows 2i + c must be clip i's channel c; two
+   launches bit-equal), and times it (also at the VPO shape) beside the
+   plain version, the unfused
    frontend and a composition of ``torch.fft.rfft``, power, filterbank and
    log, with its bound and the old dense design's;
 9. holds the upsample + argmax kernel against its plain version: bit-equal
    masks for bf16 at [120, 56, 56, 71] -> 224 x 224 and [8, ...], at
    phase 13's [80, 128, 128, 71] -> 512 x 512, at a ragged size, with exact ties planted and on a tie-heavy input (logits
-   of five values), and at the binary setup's 2 classes ([120, 56, 56, 2]
+   of five values), at the binary setup's 2 classes ([120, 56, 56, 2]
    and [16, ...] -> 224 x 224, a ragged [3, 30, 41, 2] -> 97 x 131, a
-   tie-heavy batch); two bf16 launches bit-equal (at 71 and at 2 classes);
-   float32 equal wherever the top two resized logits differ by more than
-   1e-5; timed beside ``F.interpolate`` + ``argmax`` at 71 and at 2 classes;
+   tie-heavy batch) and at the VPO validation's 22 classes and the VPO
+   setups' own 24 ([16, 128, 128, C] -> 512 x 512, a tie-heavy batch, a
+   ragged [3, 30, 41, 22]); two bf16 launches bit-equal (at 71, 2, 22 and 24
+   classes); float32 equal wherever the top two resized logits differ by
+   more than 1e-5; timed beside ``F.interpolate`` + ``argmax`` at 71, 2 and
+   22 classes;
 10. holds the fused layer1 kernels against their plain version on the stem
     output of real batches: float32 (TF32 off) and bf16 at B = 120 and
     B = 8, bf16 at a ragged map (37 x 45), at the 128-wide map of
@@ -127,7 +133,24 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
     package; the strict load clean; finite mIoU, F and J&F), and both entry
     points with ``--use_baseline`` (K3 on each eval step, nothing else);
     it prints steps/s, frames/s with the loader, the J&F videos/s and the
-    peak memory.
+    peak memory;
+15. runs the VPO training entry points at the setups' own size (512x512
+    COCO crops, batch 16, bf16, ResNet-101 at output stride 8, the ResNet-18
+    audio tower on 3 s of audio, 22 classes, every kernel flag) on synthetic
+    VPO trees (48 train images of mixed sizes, 32 test images at 512x512):
+    first K5, K1 and K2 (forward and backward) against their plain versions
+    on the features of those towers; then ``python -m
+    cavp_tpu_torch.main_vpo_mono --setup vpo_ss`` and ``python -m
+    cavp_tpu_torch.main_vpo_stereo --setup vpo_ms`` (multi-source mixtures,
+    flip-mirrored panning), one epoch of 3 steps and a validation of 2 steps
+    each, as processes (exit 0, the metric lines) and in this process: the
+    kernel arm (K2's forward and backward kernels and K3 once a train step,
+    K1, K3, K4 at 22 classes and K5 on every eval step; no host sync in a
+    train step after the first; every optimizer group moved; the sound bank
+    moved under vpo_mono and not under vpo_stereo) and the plain arm (no
+    launch, its first step within phase 7's limit); it prints the steps on
+    the stream (CUDA events), steps/s and frames/s with the loader, the
+    loader's wait share, the peak memory and the validation's frames/s.
 
 The weights are random, drawn from a seed, and made non-degenerate (see
 ``random_weights``) so the comparisons are not empty. The numbers printed
@@ -944,8 +967,15 @@ def mel_kernel_phase(config, device) -> dict:
              ("ragged", wave(3), 1 + L // 160, {}),
              ("tone", torch.from_numpy(tone).to(device), T, {}),
              ("band 60-7000 Hz", wave(rows), T, band))
+    # the VPO setups: 3 s clips, 300 frames; 2B = 32 mono clips (vpo_mono's
+    # matched and shuffled halves) or B = 16 stereo clips of 2 channels
+    vpo_L, vpo_T = 48000, 300
+    vpo_wave = torch.from_numpy(((rng.rand(2 * RESIZE_TRAIN_BATCH, vpo_L) - 0.5) * 0.2
+                                 ).astype(np.float32)).to(device)
+    cases += (("vpo", vpo_wave, vpo_T, {}),)
     results = {}
     for name, w, frames, kw in cases:
+        L = w.shape[1]  # wave() reads it: set back below
         got = fused_log_mel(w, frames, **kw)
         again = fused_log_mel(w, frames, **kw)
         ref = fused_log_mel_reference(w, frames, **kw)
@@ -969,6 +999,48 @@ def mel_kernel_phase(config, device) -> dict:
               f"{float(got.min()):.3f} .. {float(got.max()):.3f}")
         require(ok, f"the mel kernel disagrees ({name})")
         results[name] = float((got - ref).abs().max())
+        if name.startswith("vpo"):
+            results["vpo_f64"] = e_k
+    L = config.audio_samples
+
+    # the stereo row layout: [16, 2, 48000] through preprocess_audio's kernel
+    # path gives clip i's channel c from row 2i + c, each as the plain
+    # frontend gives that channel alone
+    stereo = vpo_wave.reshape(RESIZE_TRAIN_BATCH, 2, vpo_L)
+    got = preprocess_audio(stereo, n_frames=vpo_T, use_pallas=True)
+    rows_k = fused_log_mel(vpo_wave, vpo_T)
+    require(tuple(got.shape) == (RESIZE_TRAIN_BATCH, 2, vpo_T, 64)
+            and torch.equal(got.reshape(2 * RESIZE_TRAIN_BATCH, vpo_T, 64), rows_k),
+            f"the stereo mel layout {list(got.shape)}")
+    plain = torch.stack([preprocess_audio(stereo[:, c:c + 1], n_frames=vpo_T)[:, 0]
+                         for c in range(2)], 1)
+    f64 = log_mel_float64(vpo_wave, vpo_T).reshape(RESIZE_TRAIN_BATCH, 2, vpo_T, 64)
+    e_k, e_p = float((got.double() - f64).abs().max()), float((plain.double() - f64).abs().max())
+    limit = max(MEL_ATOL, 2 * e_p + 1e-7)
+    print(f"[mel-kernel] vpo_stereo [16, 2, 48000] through preprocess_audio: rows 2i + c are "
+          f"clip i's channel c; against float64 kernel {e_k:.3e}, the unfused frontend channel "
+          f"by channel {e_p:.3e} (limit {limit:.3e}: {'ok' if e_k <= limit else 'FAIL'})")
+    require(e_k <= limit, "the stereo mel rows disagree")
+
+    launches = fused_log_mel.launches
+    vpo_ms = interleaved_ms({
+        "kernel": lambda: fused_log_mel(vpo_wave, vpo_T),
+        "plain": lambda: fused_log_mel_reference(vpo_wave, vpo_T),
+        "library": lambda: preprocess_audio(vpo_wave[:, None], n_frames=vpo_T)}, 10)
+    vpo_b2b = back_to_back_ms(lambda: fused_log_mel(vpo_wave, vpo_T))
+    fused_log_mel.launches = launches
+    plan = mel_plan(125.0, 3800.0)
+    cols = plan.chunks * plan.chunk_cols
+    vpo_frames = 2 * RESIZE_TRAIN_BATCH * vpo_T
+    vpo_bound = bound_ms(3 * 2 * vpo_frames * 400 * cols,
+                         4 * (2 * RESIZE_TRAIN_BATCH * vpo_L + vpo_frames * 64 + 2 * 400 * cols),
+                         PEAK_TF32_FLOPS)
+    results.update({f"vpo_{k}": v for k, v in vpo_ms.items()})
+    results["vpo_b2b"], results["vpo_bound"] = vpo_b2b, vpo_bound
+    print(f"[mel-kernel] time at the VPO shape [32, 48000] -> 300 frames, float32, one call at "
+          f"a time: kernel {vpo_ms['kernel']:.4f} ms, plain {vpo_ms['plain']:.4f} ms, unfused "
+          f"preprocess_audio {vpo_ms['library']:.4f} ms; in a row of launches: kernel "
+          f"{vpo_b2b:.4f} ms; bound {vpo_bound[0]:.4f} ms by {vpo_bound[1]}; {card_line()}")
 
     w = wave(rows)
     _, _, fb = _device_bases(125.0, 3800.0, device)
@@ -1061,7 +1133,17 @@ def argmax_kernel_phase(config, device) -> dict:
              ("bf16_2class", (EVAL_BATCH, *low, 2), hw, torch.bfloat16),
              ("bf16_2class_batch16", (16, *low, 2), hw, torch.bfloat16),
              ("bf16_2class_ragged", (3, 30, 41, 2), (97, 131), torch.bfloat16),
-             ("bf16_2class_tie_heavy", (16, *low, 2), hw, torch.bfloat16))
+             ("bf16_2class_tie_heavy", (16, *low, 2), hw, torch.bfloat16),
+             # the VPO setups' validation: 22 classes (the entry points pin
+             # vpo_num_classes) and the setups' own 24, at 512x512, batch 16
+             ("bf16_vpo22", (RESIZE_TRAIN_BATCH, RESIZE_SIDE // 4, RESIZE_SIDE // 4, 22),
+              (RESIZE_SIDE, RESIZE_SIDE), torch.bfloat16),
+             ("bf16_vpo24", (RESIZE_TRAIN_BATCH, RESIZE_SIDE // 4, RESIZE_SIDE // 4, 24),
+              (RESIZE_SIDE, RESIZE_SIDE), torch.bfloat16),
+             ("bf16_vpo22_tie_heavy", (RESIZE_TRAIN_BATCH, RESIZE_SIDE // 4,
+                                       RESIZE_SIDE // 4, 22), (RESIZE_SIDE, RESIZE_SIDE),
+              torch.bfloat16),
+             ("bf16_vpo22_ragged", (3, 30, 41, 22), (97, 131), torch.bfloat16))
     for name, shape, out_hw, dtype in cases:
         x = (tie_heavy if name.endswith("tie_heavy") else logits)(shape, dtype)
         got = upsample_argmax(x, out_hw)
@@ -1085,14 +1167,17 @@ def argmax_kernel_phase(config, device) -> dict:
               f"{got.numel()} mask entries differ from the plain version "
               f"({'bit-equal' if n_diff == 0 else 'near-ties only'}; ties planted)")
         results[name] = float(n_diff)
-        if name in ("bf16", "bf16_2class"):
+        if name in ("bf16", "bf16_2class", "bf16_vpo22", "bf16_vpo24"):
             again = upsample_argmax(x, out_hw)
             require(bool(torch.equal(got, again)), f"two {name} argmax launches differ")
             print(f"[argmax-kernel] two {name} launches at the eval shape: bit-equal")
 
-    B, (h, w), (H, W) = EVAL_BATCH, low, hw
-    for classes, suffix in ((C, ""), (2, "_2")):
-        x = logits((EVAL_BATCH, *low, classes), torch.bfloat16)
+    vpo_low, vpo_hw = (RESIZE_SIDE // 4,) * 2, (RESIZE_SIDE,) * 2
+    for classes, suffix, B, low, hw in ((C, "", EVAL_BATCH, low, hw),
+                                        (2, "_2", EVAL_BATCH, low, hw),
+                                        (22, "_22", RESIZE_TRAIN_BATCH, vpo_low, vpo_hw)):
+        (h, w), (H, W) = low, hw
+        x = logits((B, *low, classes), torch.bfloat16)
         x_nchw = x.permute(0, 3, 1, 2)   # the head's own layout: channels_last
         launches = upsample_argmax.launches
         ms = interleaved_ms({
@@ -2248,6 +2333,302 @@ def binary_phase(device, repo: Path) -> dict:
     return out
 
 
+VPO_TRAIN_IMAGES = 48  # 3 steps an epoch at batch 16
+VPO_TEST_IMAGES = 32   # 2 validation steps of 16 single frames
+VPO_SIDE = 512
+
+
+def vpo_kernel_check(device) -> dict:
+    """Phase 15 (a): K5, K1 and K2 (forward and backward) against their plain
+    versions on the features of the VPO setups' own towers: ResNet-101 at
+    output stride 8 (dilation [False, True, True]) and the ResNet-18 audio
+    tower on 3 s of audio, 16 seeded 512x512 images, bf16, the limits of
+    phases 3, 6 and 10. Its launches are not counted: each main path's run
+    sets the counts to 0 first."""
+    import numpy as np
+    import torch
+
+    from cavp_tpu_torch.config import get_config
+    from cavp_tpu_torch.engine.loops import preprocess_audio
+    from cavp_tpu_torch.engine.runner import build_model
+    from cavp_tpu_torch.models.cavp import map_to_tokens
+    from cavp_tpu_torch.ops.kernels import fusion_train as ft
+    from cavp_tpu_torch.ops.kernels.fusion import (
+        fused_visual_fusion, fused_visual_fusion_reference)
+    from cavp_tpu_torch.ops.kernels.layer1 import fused_layer1, fused_layer1_reference
+
+    config = get_config("vpo_ss").replace(num_classes=22)
+    require(config.visual_backbone == 101 and config.image_height == VPO_SIDE
+            and list(config.last_three_dilation_stride) == [False, True, True],
+            f"the vpo_ss setup: {config}")
+    model = build_model(config, device)
+    random_weights(model, config, device)
+    B = RESIZE_TRAIN_BATCH
+    rng = np.random.RandomState(SEED + 40)
+    img = rng.randint(0, 256, (B, VPO_SIDE, VPO_SIDE, 3)).astype(np.float32)
+    img = (img / 255.0 - np.asarray(config.image_mean)) / np.asarray(config.image_std)
+    image = torch.from_numpy(img.astype(np.float32)).to(device).permute(0, 3, 1, 2)
+    wave = torch.from_numpy(((rng.rand(B, 1, config.audio_samples) - 0.5) * 0.2
+                             ).astype(np.float32)).to(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    with torch.no_grad():
+        resnet = model.backbone.backbone
+        stem = resnet.stem_forward(image.to(model.dtype)).permute(0, 2, 3, 1).contiguous()
+        got, ref = fused_layer1(resnet, stem), fused_layer1_reference(resnet, stem)
+        err = (got.float() - ref.float()).abs()
+        scale = float(ref.float().abs().max())
+        ok = (float(err.max()) <= L1_BF16_MAX_REL * scale
+              and float(err.mean()) <= L1_BF16_MEAN_REL * scale)
+        print(f"[vpo] K5 on ResNet-101's stem output {list(stem.shape)} bf16: max_abs_err "
+              f"{float(err.max()):.3e} mean {float(err.mean()):.3e}, largest output "
+              f"{scale:.3f} (max {L1_BF16_MAX_REL} and mean {L1_BF16_MEAN_REL} of it: "
+              f"{'ok' if ok else 'FAIL'})")
+        require(ok, "K5 disagrees with its plain version behind ResNet-101")
+        out["layer1"] = float(err.max())
+        fea_v = model.forward_visual_feature(image)
+        audio = preprocess_audio(wave, n_frames=config.mel_frames).permute(0, 3, 1, 2)
+        fea_a = model.forward_audio_feature(audio)
+        x = map_to_tokens(fea_v).contiguous()
+        require(tuple(x.shape) == (B, RESIZE_TOKENS, 304) and tuple(fea_a.shape) == (B, 304),
+                f"the VPO towers gave {list(x.shape)} and {list(fea_a.shape)}")
+        got = fused_visual_fusion(model, x, fea_a)
+        ref = fused_visual_fusion_reference(model, x, fea_a)
+        err = (got.float() - ref.float()).abs()
+        ok = float(err.max()) <= BF16_MAX_ABS and float(err.mean()) <= BF16_MEAN_ABS
+        print(f"[vpo] K1 on the ResNet-101 OS8 features {list(x.shape)} and the ResNet-18 "
+              f"audio features bf16: max_abs_err {float(err.max()):.3e} mean "
+              f"{float(err.mean()):.3e} (max {BF16_MAX_ABS}, mean {BF16_MEAN_ABS}: "
+              f"{'ok' if ok else 'FAIL'})")
+        require(ok, "K1 disagrees with its plain version behind ResNet-101")
+        out["fusion"] = float(err.max())
+        fea_a2 = torch.cat([fea_a, fea_a[torch.arange(B, device=device).roll(1)]])
+        wqk2, m2, ws = ft.train_operands(model, fea_a2, B, torch.bfloat16)
+        y = ft.token_chain_train(x, wqk2, m2, ws)
+        ref = ft.token_chain_train_reference(x, wqk2, m2, ws)
+        err = (y.float() - ref.float()).abs()
+        ok = float(err.max()) <= BF16_MAX_ABS and float(err.mean()) <= BF16_MEAN_ABS
+        dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(SEED + 41)
+                         ).to(device, torch.bfloat16)
+        got = ft.token_chain_train_backward(x, wqk2, m2, ws, dy)
+        ref_g = ft.token_chain_train_backward_reference(x, wqk2, m2, ws, dy)
+        names = ("dx", "dwqk", "dm") + ft.WEIGHT_NAMES
+        flat = lambda r: [r[0], r[1], r[2], *r[3]]
+        rels = {k: float((a.float() - r.float()).abs().max()) / (float(r.float().abs().max())
+                                                                   + 1e-30)
+                for k, a, r in zip(names, flat(got), flat(ref_g))}
+        worst = max(rels, key=rels.get)
+        print(f"[vpo] K2 on the same features, dup 2 {list(y.shape)} bf16: forward max_abs_err "
+              f"{float(err.max()):.3e} mean {float(err.mean()):.3e} (max {BF16_MAX_ABS}, mean "
+              f"{BF16_MEAN_ABS}: {'ok' if ok else 'FAIL'}); backward, the worst of "
+              f"{len(names)} gradients {worst} {rels[worst]:.2e} of its largest entry (limit "
+              f"{GRAD_BF16_REL})")
+        require(ok and rels[worst] <= GRAD_BF16_REL,
+                "K2 disagrees with its plain version behind ResNet-101")
+        out["fwd"], out["bwd"] = float(err.max()), rels[worst]
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def vpo_phase(device, repo: Path) -> dict:
+    """Phase 15: the VPO training entry points at the setups' own size
+    (512x512 COCO crops, batch 16, bf16, ResNet-101 at output stride 8, the
+    ResNet-18 audio tower on 3 s of audio, 22 classes, every kernel flag) on
+    a synthetic VPO tree: ``python -m cavp_tpu_torch.main_vpo_mono --setup
+    vpo_ss`` and ``python -m cavp_tpu_torch.main_vpo_stereo --setup vpo_ms``
+    (multi-source mixtures, flip-mirrored panning), one epoch of 3 steps and
+    a validation of 2 steps of single frames. First K1, K2 and K5 behind the
+    setups' towers (``vpo_kernel_check``); then each entry point as its own
+    process; then each in this process, the kernel arm (launch counts, no host
+    sync after the first train step, every optimizer group moved, the sound
+    bank moved under vpo_mono only) and the plain arm (no launch, its first
+    step within phase 7's limit). Returns its numbers."""
+    import os
+    import shutil
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from cavp_tpu_torch import main_vpo_mono, main_vpo_stereo
+    from cavp_tpu_torch.data.synthetic import make_synthetic_vpo
+    from cavp_tpu_torch.engine import runner
+    from cavp_tpu_torch.engine.optim import GROUPS, label_params
+
+    root = repo / "build" / "chip_smoke_vpo"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    data = root / "data"
+    make_synthetic_vpo(str(data), num_train=VPO_TRAIN_IMAGES, num_test=VPO_TEST_IMAGES,
+                       image_size=VPO_SIDE, seed=SEED)
+    print(f"[vpo] wrote VPO-SS, VPO-MS and VPO-MSMI trees ({VPO_TRAIN_IMAGES} train images of "
+          f"mixed sizes, {VPO_TEST_IMAGES} test images at {VPO_SIDE}x{VPO_SIDE} each) and "
+          f"3.5 s VGGSound clips in {time.perf_counter() - t0:.1f} s")
+    out = {"kernels": vpo_kernel_check(device)}
+
+    flags = [f"--{f}" for f in TRAIN_FLAGS]
+    runs = (("main_vpo_mono", main_vpo_mono, "vpo_ss", "vpo_mono"),
+            ("main_vpo_stereo", main_vpo_stereo, "vpo_ms", "vpo_stereo"))
+
+    def argv(setup, *more):
+        return ["--setup", setup, "--root_dataset_dir", str(data), "--epochs", "1", *more]
+
+    # as a user runs them, each a process of its own in a directory of its own
+    for name, _, setup, _ in runs:
+        cwd = root / name
+        cwd.mkdir(parents=True)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"cavp_tpu_torch.{name}",
+                               *argv(setup, "--num_workers", "8", *flags)], cwd=cwd,
+                              capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=str(repo)))
+        lines = [ln.split(" | INFO | ")[-1] for ln in proc.stderr.splitlines()
+                 if " | INFO | " in ln and ("epoch " in ln or "|ALL|" in ln)]
+        require(proc.returncode == 0 and len(lines) == 2 and (cwd / "checkpoints").is_dir(),
+                f"{name}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        print(f"[vpo] python -m cavp_tpu_torch.{name} --setup {setup} (every kernel flag) exit 0 "
+              f"in {time.perf_counter() - t0:.1f} s: {' || '.join(lines)}")
+
+    # in this process: the train steps and the eval steps, counted
+    real = dict(init_state=runner.init_state, make_train_step=runner.make_train_step,
+                run_validation=runner.run_validation)
+    rec = dict(steps=[], syncs=[], events=[], eval_stats=[], start=None, state=None)
+
+    def init_state(*a, **kw):
+        state = real["init_state"](*a, **kw)
+        rec["state"] = state
+        rec["start"] = ({k: v.clone() for k, v in state.model.named_parameters()},
+                        state.sound_bank.clone())
+        return state
+
+    def make_train_step(*a, **kw):
+        step = real["make_train_step"](*a, **kw)
+
+        def counted(state, batch, epoch):
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    events[0].record()
+                    state, metrics = step(state, batch, epoch)
+                    events[1].record()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            rec["events"].append(events)
+            rec["syncs"].append(sum("synchroniz" in str(w.message) for w in caught))
+            rec["steps"].append({k: float(v) for k, v in metrics.items()})
+            return state, metrics
+        return counted
+
+    def run_validation(*a, **kw):
+        stats = {}
+        res = real["run_validation"](*a, stats=stats, **kw)
+        rec["eval_stats"].append(stats)
+        return res
+
+    def train_arm(entry, args):
+        for k in ("steps", "syncs", "events", "eval_stats"):
+            rec[k] = []
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        entry.main(args, device=device, stats=stats)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        state, (params0, bank0) = rec.pop("state"), rec.pop("start")
+        labels = label_params(state.model)
+        moved = {labels[n] for n, p in state.model.named_parameters()
+                 if not torch.equal(p, params0[n])}
+        bank_moved = not torch.equal(state.sound_bank, bank0)
+        rec["state"] = rec["start"] = None
+        del state, params0, bank0
+        torch.cuda.empty_cache()
+        return read_launches(), stats, moved, bank_moved, peak
+
+    runner.init_state, runner.make_train_step = init_state, make_train_step
+    runner.run_validation = run_validation
+    here = os.getcwd()
+    os.chdir(root)
+    try:
+        for name, entry, setup, variant in runs:
+            # one loader thread, so that the plain arm draws the same batches
+            args = argv(setup, "--num_workers", "1", "--ignore_ckpt")
+            launches, stats, moved, bank_moved, peak = train_arm(entry, args + flags)
+            steps, syncs = list(rec["steps"]), list(rec["syncs"])
+            evals = list(rec["eval_stats"])
+            n_eval = sum(e["steps"] for e in evals)
+            step_ms = [a.elapsed_time(b) for a, b in rec["events"]]
+            want = {"mel": len(steps) + n_eval, "layer1": 3 * n_eval, "fusion": n_eval,
+                    "argmax": n_eval, "fwd": len(steps), "stage_a": len(steps),
+                    "stage_b": len(steps), "reduce": len(steps), "f32": 0}
+            require(len(steps) == 3 and n_eval == 2 and launches == want,
+                    f"{variant}: {len(steps)} train steps and {n_eval} eval steps launched "
+                    f"{launches}, not {want}")
+            require(evals[0]["frames"] == VPO_TEST_IMAGES, f"{variant} validation {evals}")
+            losses = [m["loss/loss"] for m in steps]
+            ctr = [m["loss/l_ctr_av"] for m in steps]
+            require(all(np.isfinite(losses)) and all(c > 0 for c in ctr),
+                    f"{variant}: losses {losses}, l_ctr_av {ctr}")
+            require(syncs[1:] == [0, 0], f"{variant}: host syncs in the train steps {syncs}")
+            require(moved == set(GROUPS), f"{variant}: groups that did not move "
+                                          f"{set(GROUPS) - moved}")
+            require(bank_moved == (variant == "vpo_mono"),
+                    f"{variant}: the sound bank moved: {bank_moved}")
+            first = steps[0]
+            val = evals[0]
+            res = dict(step_ms=step_ms, steps_per_s=stats["steps"] / stats["wall_s"],
+                       frames_per_s=stats["frames"] / stats["wall_s"],
+                       wait=stats["loader_wait_s"] / stats["wall_s"], peak=peak,
+                       launches=launches, val_fps=val["frames"] / val["wall_s"],
+                       val_wait=val["loader_wait_s"] / val["wall_s"], losses=losses)
+            print(f"[vpo] {name} --setup {setup} kernel arm: {len(steps)} train steps launched "
+                  f"K2 forward {launches['fwd']}, backward stages {launches['stage_a']}/"
+                  f"{launches['stage_b']}/{launches['reduce']}, K3 {launches['mel']} "
+                  f"({len(steps)} train + {n_eval} eval, [32, 48000] -> 300 frames), K1 "
+                  f"{launches['fusion']}, K4 {launches['argmax']} (22 classes), K5 "
+                  f"{launches['layer1']} over {n_eval} eval steps; losses "
+                  f"{' '.join(f'{v:.4f}' for v in losses)}, l_ctr_av "
+                  f"{' '.join(f'{v:.4f}' for v in ctr)}; host syncs {syncs} (the first step "
+                  f"fills the caches); all {len(GROUPS)} optimizer groups moved, the sound bank "
+                  f"{'moved' if bank_moved else 'not (no bank in vpo_stereo)'}")
+
+            # the plain arm: no launch; its first step from the same state on
+            # the same batch within phase 7's limit of the kernel arm's
+            launches, _, _, _, _ = train_arm(entry, args)
+            require(all(v == 0 for v in launches.values()),
+                    f"{variant}: the plain arm launched {launches}")
+            report = []
+            for k in ("loss/loss", "loss/cross_entropy", "loss/l_ctr_av"):
+                got, ref = first[k], rec["steps"][0][k]
+                rel = abs(got - ref) / max(abs(ref), 1e-12)
+                report.append(f"{k} {got:.5f} against {ref:.5f} ({rel:.2e})")
+                require(rel <= LOSS_REL, f"{variant}: the kernel arm's first step is off the "
+                                         "plain arm's: " + report[-1])
+            print(f"[vpo] {variant} plain arm: no kernel launched; its first step against the "
+                  f"kernel arm's on the same batch (relative, limit {LOSS_REL}): "
+                  + ", ".join(report))
+            print(f"[vpo] {variant} at {VPO_SIDE}x{VPO_SIDE}, batch 16, bf16, every kernel flag, "
+                  f"one 3-step epoch on one loader thread (smoke readings): the steps on the "
+                  f"stream {' / '.join(f'{v:.1f}' for v in step_ms)} ms (CUDA events; the first "
+                  f"cold), {res['steps_per_s']:.3f} steps/s, {res['frames_per_s']:.1f} frames/s "
+                  f"with the loader, loader wait {100 * res['wait']:.1f}%, peak memory "
+                  f"{peak:.2f} GiB; the validation {val['frames']} frames in {val['steps']} "
+                  f"steps, {res['val_fps']:.1f} frames/s with the loader (wait "
+                  f"{100 * res['val_wait']:.1f}%); {card_line()}")
+            out[variant] = res
+    finally:
+        os.chdir(here)
+        runner.init_state, runner.make_train_step = real["init_state"], real["make_train_step"]
+        runner.run_validation = real["run_validation"]
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2348,6 +2729,19 @@ def main() -> int:
           f"{binary['v1s']['videos_per_s']:.1f} (S4) / {binary['v1m']['videos_per_s']:.1f} "
           f"(MS3) videos/s with the loader; {card_line()}")
 
+    # 15. the VPO training entry points: the counts are read from their runs only
+    vpo = vpo_phase(device, repo)
+    for variant in ("vpo_mono", "vpo_stereo"):
+        r = vpo[variant]
+        print(f"[vpo] {variant} training entry point at 512x512, batch 16, bf16, ResNet-101 OS8, "
+              f"every kernel flag, one 3-step epoch in this process (smoke readings): warm "
+              f"steps on the stream {' / '.join(f'{v:.1f}' for v in r['step_ms'][1:])} ms, "
+              f"{r['steps_per_s']:.3f} steps/s, {r['frames_per_s']:.1f} frames/s with the "
+              f"loader (one thread, wait {100 * r['wait']:.1f}%), peak {r['peak']:.2f} GiB, "
+              f"validation {r['val_fps']:.1f} frames/s; {card_line()}")
+    vpo_launches = {k: {v: vpo[v]["launches"][k] for v in ("vpo_mono", "vpo_stereo")}
+                    for k in vpo["vpo_mono"]["launches"]}
+
     train_source = "cavp_tpu_torch/csrc/fusion_train_kernel.cu"
     print(json.dumps({"kernels": [
         {"name": "fused_visual_fusion", "route": "cuda",
@@ -2356,19 +2750,22 @@ def main() -> int:
          "launches": launches, "max_abs_err": kres["bf16"],
          "ms": kres["ms"], "plain_ms": kres["plain_ms"],
          "bound_ms": kres["bound_ms"], "bound_by": kres["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "launches_vpo": vpo_launches["fusion"],
+         "max_abs_err_vpo": vpo["kernels"]["fusion"]},
         {"name": "fusion_train_fwd", "route": "cuda", "source": train_source,
          "replaces": "cavp_tpu/ops/pallas/fusion_train_kernel.py:280",
          "launches": train["launches"]["fwd"], "max_abs_err": tres["fwd_err"],
          "ms": tres["fwd_ms"], "plain_ms": tres["plain_fwd_ms"],
          "bound_ms": tres["fwd_bound"][0], "bound_by": tres["fwd_bound"][1],
-         "library_ms": None},
+         "library_ms": None, "launches_vpo": vpo_launches["fwd"],
+         "max_abs_err_vpo": vpo["kernels"]["fwd"]},
         {"name": "fusion_train_bwd", "route": "cuda", "source": train_source,
          "replaces": "cavp_tpu/ops/pallas/fusion_train_kernel.py:312",
          "launches": train["launches"]["stage_a"], "max_abs_err": tres["bwd_err"],
          "ms": tres["bwd_ms"], "plain_ms": tres["plain_bwd_ms"],
          "bound_ms": tres["bwd_bound"][0], "bound_by": tres["bwd_bound"][1],
-         "library_ms": None,
+         "library_ms": None, "launches_vpo": vpo_launches["stage_a"],
+         "max_rel_err_vpo": vpo["kernels"]["bwd"],
          "stages": ["fusion_train_bwd_stage_a", "fusion_train_bwd_stage_b",
                     "fusion_train_bwd_reduce"]},
         *({"name": f"fusion_train_bwd_{k}", "route": "cuda", "source": train_source,
@@ -2376,7 +2773,7 @@ def main() -> int:
            "launches": train["launches"][k], "max_abs_err": err,
            "ms": tres[f"{k}_ms"], "plain_ms": tres[f"plain_{k}_ms"],
            "bound_ms": tres[f"{k}_bound"][0], "bound_by": tres[f"{k}_bound"][1],
-           "library_ms": None}
+           "library_ms": None, "launches_vpo": vpo_launches[k]}
           for k, err in (("stage_a", tres["stage_a_err"]), ("stage_b", tres["stage_b_err"]),
                          ("reduce", tres["stage_b_err"]))),
         {"name": "fused_log_mel", "route": "cuda",
@@ -2386,7 +2783,12 @@ def main() -> int:
          "ms": mres["kernel"], "plain_ms": mres["plain"],
          "bound_ms": mres["bound"][0], "bound_by": mres["bound"][1],
          "library_ms": mres["library"], "fft_composition_ms": mres["fft"],
-         "ms_in_a_row": mres["kernel_b2b"]},
+         "ms_in_a_row": mres["kernel_b2b"], "launches_vpo": vpo_launches["mel"],
+         "max_abs_err_f64_vpo_32x48000": mres["vpo_f64"], "ms_vpo_32x48000": mres["vpo_kernel"],
+         "ms_in_a_row_vpo_32x48000": mres["vpo_b2b"],
+         "plain_ms_vpo_32x48000": mres["vpo_plain"],
+         "bound_ms_vpo_32x48000": mres["vpo_bound"][0],
+         "library_ms_vpo_32x48000": mres["vpo_library"]},
         {"name": "upsample_argmax", "route": "cuda",
          "source": "cavp_tpu_torch/csrc/upsample_argmax_kernel.cu",
          "replaces": "cavp_tpu/ops/pallas/upsample_argmax_kernel.py:70",
@@ -2397,14 +2799,18 @@ def main() -> int:
          "launches_binary_setup": binary["train"]["launches"]["argmax"],
          "ms_2_classes": ares["kernel_2"], "plain_ms_2_classes": ares["plain_2"],
          "bound_ms_2_classes": ares["bound_2"][0],
-         "library_ms_2_classes": ares["library_2"]},
+         "library_ms_2_classes": ares["library_2"], "launches_vpo": vpo_launches["argmax"],
+         "ms_22_classes": ares["kernel_22"], "plain_ms_22_classes": ares["plain_22"],
+         "bound_ms_22_classes": ares["bound_22"][0],
+         "library_ms_22_classes": ares["library_22"]},
         {"name": "fused_layer1", "route": "cuda",
          "source": "cavp_tpu_torch/csrc/layer1_kernel.cu",
          "replaces": "cavp_tpu/ops/pallas/layer1_kernel.py:153",
          "launches": eval_launches["layer1"], "max_abs_err": lres["bf16"],
          "ms": lres["kernel"], "plain_ms": lres["plain"],
          "bound_ms": lres["bound"][0], "bound_by": lres["bound"][1],
-         "library_ms": None}]}))
+         "library_ms": None, "launches_vpo": vpo_launches["layer1"],
+         "max_abs_err_vpo": vpo["kernels"]["layer1"]}]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

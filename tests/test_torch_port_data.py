@@ -102,7 +102,7 @@ def test_flags_give_the_jax_package_config(argv):
 @pytest.mark.parametrize("argv,exc,match", [
     (["--setup", "avss_binary", "--data_root", "/objects", "--avsbench_split", "v1s",
       "--resize_flag"], None, None),
-    (["--setup", "vpo_ms"], NotImplementedError, "Queue 1 item 5"),
+    (["--setup", "vpo_ms"], None, None),
     (["--setup", "avss", "--use_baseline"], None, None),
     (["--setup", "avss", "--wandb_mode", "online"], NotImplementedError, "Queue 1 item 3"),
     (["--setup", "coco"], ValueError, "Unknown setup"),  # the parser's default setup
@@ -110,8 +110,9 @@ def test_flags_give_the_jax_package_config(argv):
 ], ids=["avss_binary", "vpo", "baseline", "wandb", "unknown", "tpu-only"])
 def test_setups_and_flags_not_ported_raise(argv, exc, match):
     """The setups and flags the port does not have raise; those it has
-    since ROADMAP.md Queue 1 item 4 (``avss_binary``, ``--use_baseline``)
-    give the JAX package's config, field for field."""
+    since ROADMAP.md Queue 1 items 4 and 5 (``avss_binary``,
+    ``--use_baseline``, the VPO setups) give the JAX package's config,
+    field for field."""
     if exc is None:
         got, ref = load_args_and_config(argv), jax_load_args_and_config(argv)
         for f in (f for f in Config.__dataclass_fields__ if f != "steps_per_epoch"):
@@ -158,12 +159,14 @@ def test_decoder_is_pil_and_raises_without_it(monkeypatch, tree):
 
 
 def test_train_mode_is_not_ported(tree):
-    """Of train mode, what is left: the COCO and VPO setups' augmentation
-    (its ColorJitter). The AVS setups' train items and augmentation are
-    held against the JAX package's in ``test_torch_port_train_data.py``."""
+    """Train mode is ported for every setup: the COCO and VPO setups'
+    augmentation takes the COCO scales and the colour jitter (held against
+    the JAX package's in ``test_torch_port_vpo_data.py``), the AVS setups'
+    neither (held in ``test_torch_port_train_data.py``)."""
     cfg, _ = _configs(tree)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        VisualAugmentation(cfg.image_mean, cfg.image_std, SIZE, SIZE, "train", setup="vpo_ms")
+    aug = VisualAugmentation(cfg.image_mean, cfg.image_std, SIZE, SIZE, "train", setup="vpo_ms")
+    ref = JaxVisualAugmentation(cfg.image_mean, cfg.image_std, SIZE, SIZE, "train", "vpo_ms")
+    assert aug.scale_list == ref.scale_list and aug.color_jitter is not None
     assert len(avss.AVSSDataset(cfg, "train")) == 0  # the tree has no train split
 
 

@@ -259,14 +259,15 @@ def test_steps_per_epoch_and_every_steps_lrs_match_jax(n_train, gpus, max_steps)
 
 def test_color_jitter_setups_raise(tree):
     """The COCO and VPO setups' train augmentation (their scales and
-    ColorJitter) is not ported; their test mode and the AVS setups' train
-    mode are."""
+    ColorJitter) is ported: both packages pick the same scales and jitter
+    for every setup, in train and test mode; the draws are held bit-equal
+    in ``test_torch_port_vpo_data.py``."""
     cfg, _ = _configs(tree)
     kw = dict(image_mean=cfg.image_mean, image_std=cfg.image_std, image_width=SIZE,
               image_height=SIZE)
-    for setup in ("coco", "vpo_ms", "vpo_ss"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            VisualAugmentation(mode="train", setup=setup, **kw)
-        VisualAugmentation(mode="test", setup=setup, **kw)
-    for setup in ("avs", "avss", "avss_binary"):
-        VisualAugmentation(mode="train", setup=setup, **kw)
+    for setup in ("coco", "vpo_ms", "vpo_ss", "avs", "avss", "avss_binary"):
+        for mode in ("train", "test"):
+            got = VisualAugmentation(mode=mode, setup=setup, **kw)
+            ref = JaxVisualAugmentation(mode=mode, setup=setup, **kw)
+            assert got.scale_list == ref.scale_list, (setup, mode)
+            assert (got.color_jitter is None) == (ref.color_jitter is None), (setup, mode)

@@ -152,9 +152,13 @@ def test_update_bank_matches_jax_and_the_sequential_loop(B, N):
     np.testing.assert_array_equal(cls.numpy()[np.asarray(jsingle)],
                                   np.asarray(jcls)[np.asarray(jsingle)])
     assert soundbank.init_bank(5, N, 6, "cpu").shape == (5, N, 6)
-    with pytest.raises(NotImplementedError, match="P8"):
-        soundbank.update_bank(torch.from_numpy(bank), torch.from_numpy(items),
-                              torch.from_numpy(img_label), per_label=True)
+    # the VPO rule, every source class of a sample (ported with the VPO
+    # steps; held on more cases in test_torch_port_vpo_models.py)
+    got = soundbank.update_bank(torch.from_numpy(bank), torch.from_numpy(items),
+                                torch.from_numpy(img_label), per_label=True)
+    loop = jax_bank._update_bank_loop(jnp.asarray(bank), jnp.asarray(items),
+                                      jnp.asarray(img_label), per_label=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(loop))
 
 
 @pytest.mark.parametrize("seed,enabled,filter_bg_only", [(0, True, False), (1, True, True),

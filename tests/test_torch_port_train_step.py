@@ -464,13 +464,16 @@ def test_injected_mel_equals_the_dedup_path_and_the_generator_draws():
 
 
 def test_unported_variants_and_the_default_device_raise():
-    """The vpo steps are not ported and raise; the baseline step is
-    (tests/test_torch_port_baseline.py holds it against the JAX package)."""
+    """Every variant of the JAX package is ported: the vpo steps
+    (tests/test_torch_port_vpo_train.py holds them against the JAX
+    package) and the baseline step (tests/test_torch_port_baseline.py)
+    give steps, an unknown variant raises; and so does the default device
+    without a card."""
     cfg = get_config("avss")
-    for variant in ("vpo_mono", "vpo_stereo"):
-        with pytest.raises(NotImplementedError, match="P8"):
-            loops.make_train_step(None, None, cfg, variant=variant)
-    assert callable(loops.make_train_step(None, None, cfg, variant="baseline"))
+    for variant in ("vpo_mono", "vpo_stereo", "baseline"):
+        assert callable(loops.make_train_step(None, None, cfg, variant=variant))
+    with pytest.raises(ValueError, match="variant"):
+        loops.make_train_step(None, None, cfg, variant="vpo")
     with pytest.raises(RuntimeError, match="CUDA"):
         init_state(cfg)
 
