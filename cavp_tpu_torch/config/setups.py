@@ -72,11 +72,15 @@ class Config:
     weight_decay: float = 1e-4
     warm_up_epoch: int = 0
     steps_per_epoch: int = 1000
+    loss_w: float = 0.1  # the weight of extra_losses
     corocl_w: float = 1.0  # the reference adds l_ctr_av unweighted
     cl_temp: float = 0.1
     max_view: int = 512
     ow_rate: float = 0.5
     class_slots: int = 16  # static per-batch class budget of the CoroCL sampler
+    # the reference Losser's dormant objectives, "av_contrast" and
+    # "pixel_contrast": no flag sets them, only Config.replace
+    extra_losses: List[str] = field(default_factory=list)
 
     # --- runtime ---
     gpus: int = 1   # data-parallel workers; scales the sound bank's depth

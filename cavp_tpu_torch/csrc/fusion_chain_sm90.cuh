@@ -60,6 +60,17 @@
 // - The ragged last tile of an image runs on whatever rows follow it (the
 //   next image's, or zeros past the tensor's end) and is masked on store,
 //   with no host padding.
+//
+// The zoo's widths, C = 720 (HRNet) and 512 (OCR), take a second design,
+// `wide`, below: the one above splits each product's columns between two
+// warpgroups, so at C = 720 the MLP's [64, 720] float sum is 180 registers
+// a thread against the 232 the hand-over gives, and three [64, 720] bf16
+// tile buffers (276 KB) beside the 80 KB ring exceed the 227 KB a block may
+// have. `wide` keeps the rounding points and the slab-free simplicity of a
+// first version: tiles of 32 tokens, one block each, bf16 mma.sync
+// products with float sums and the weights read from L2.
+
+#include <mma.h>
 
 #include "sm90.cuh"
 
@@ -101,15 +112,18 @@ struct Params {
 
 // ---- shapes and shared memory ------------------------------------------------
 // C with an instantiation: the DeepLab feature of the ResNet-50 model and of
-// the ResNet-18 one. The MLP's hidden is walked in chunks of C columns.
+// the ResNet-18 one (and PVT's), in the design above, where the MLP's hidden
+// is walked in chunks of C columns; the HRNet and OCR features in `wide`.
 constexpr int kWideC = 304;
 constexpr int kNarrowC = 112;
+constexpr int kHRNetC = 720;
+constexpr int kOCRC = 512;
 
-// The shapes the bf16 chain takes: C in {kWideC, kNarrowC}, hidden kHidden,
-// mlp_hidden a positive multiple of C, kHeads heads.
+// The shapes the bf16 chain takes: C in {kWideC, kNarrowC, kHRNetC, kOCRC},
+// hidden kHidden, mlp_hidden a positive multiple of C, kHeads heads.
 inline bool supported(int C, int hidden, int mlp_hidden, int heads) {
-  return (C == kWideC || C == kNarrowC) && hidden == kHidden && mlp_hidden > 0 &&
-         mlp_hidden % C == 0 && heads == kHeads;
+  return (C == kWideC || C == kNarrowC || C == kHRNetC || C == kOCRC) && hidden == kHidden &&
+         mlp_hidden > 0 && mlp_hidden % C == 0 && heads == kHeads;
 }
 
 // the first warpgroup's columns of a product `cols` wide: the panel boundary
@@ -531,9 +545,288 @@ template <bool kTrain, int C> int launch_width(const Args& a, cudaStream_t strea
   return (int)cudaGetLastError();
 }
 
+// ---- the zoo's widths: C = 720 and 512 ---------------------------------------------
+// Per tile of kWideRows tokens (a grid of (tiles, B), kWideWarps warps), in shared
+// memory: X and T [32, C] bf16 (x, then t2 (train) and LN2's output; a),
+// H [32, kChunk] bf16 (fc1's output, then a chunk of the MLP's hidden), the
+// float tile F [32, C] that every product lands in for its epilogue, and the
+// rounded gate G [32, kHeads]. Products: bf16 wmma m16n16k16 with float
+// accumulators, A from shared memory, B from global memory (row-major
+// [in, out]); warp w of kWideWarps takes the column tiles w, w + 16, ... of
+// both row tiles, so it reads each B fragment once a tile, and loads the
+// next K step's B fragments while the current step's products run. The MLP walks its hidden kChunk columns a pass: the chunk's
+// product goes through F, Wm2's float sums stay in the warps' fragments over
+// every pass, as the design above keeps them. Epilogues run on all threads
+// (elementwise) or a warp a row (LayerNorm statistics: the mean, then the
+// centred sum of squares of the rounded values; the gate's dot products);
+// t4 is rebuilt from a and the rounded gate where the residual needs it.
+// Rows past N are zero on load and not stored.
+namespace wide {
+
+namespace wmma = nvcuda::wmma;
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
+
+constexpr int kWideRows = 32;
+constexpr int kWideWarps = 16;  // latency hiding for the B loads from L2
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kChunk = 256;
+
+__host__ __device__ constexpr int ld_bf(int c) { return c + 8; }  // bf16 tiles' row stride
+__host__ __device__ constexpr int ld_f(int c) { return c + 4; }   // the float tile's
+
+__host__ __device__ constexpr size_t smem_bytes(int C) {
+  return sizeof(bf16) * kWideRows * (2 * ld_bf(C) + ld_bf(kChunk)) +
+         sizeof(float) * kWideRows * (ld_f(C) + kHeads);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// acc[i][rt] += A[16 rt : +16, 0 : K] @ B[0 : K, 16 ct : +16] for both row
+// tiles rt and the warp's column tiles ct = w + kWideWarps i below
+// ncols / 16: each B fragment is read once a tile, for both row tiles, one K
+// step ahead of its products
+template <int NT>
+__device__ __forceinline__ void mma_tiles(Acc (&acc)[NT][2], const bf16* A, int lda, int K,
+                                          const bf16* B, int ldb, int ncols) {
+  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
+  const int warp = threadIdx.x >> 5;
+  FragB fb[NT];
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int ct = warp + kWideWarps * i;
+    if (ct * 16 < ncols) wmma::load_matrix_sync(fb[i], B + ct * 16, ldb);
+  }
+  for (int k = 0; k < K; k += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa0, fa1;
+    wmma::load_matrix_sync(fa0, A + k, lda);
+    wmma::load_matrix_sync(fa1, A + 16 * lda + k, lda);
+    FragB fn[NT];
+    const bool more = k + 16 < K;
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int ct = warp + kWideWarps * i;
+      if (more && ct * 16 < ncols)
+        wmma::load_matrix_sync(fn[i], B + (size_t)(k + 16) * ldb + ct * 16, ldb);
+    }
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int ct = warp + kWideWarps * i;
+      if (ct * 16 < ncols) {
+        wmma::mma_sync(acc[i][0], fa0, fb[i], acc[i][0]);
+        wmma::mma_sync(acc[i][1], fa1, fb[i], acc[i][1]);
+        fb[i] = fn[i];
+      }
+    }
+  }
+}
+
+template <int NT> __device__ __forceinline__ void zero(Acc (&acc)[NT][2]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    wmma::fill_fragment(acc[i][0], 0.f);
+    wmma::fill_fragment(acc[i][1], 0.f);
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void store_tiles(Acc (&acc)[NT][2], float* F, int ldf, int ncols) {
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int ct = warp + kWideWarps * i;
+    if (ct * 16 < ncols)
+#pragma unroll
+      for (int rt = 0; rt < 2; ++rt)
+        wmma::store_matrix_sync(F + rt * 16 * ldf + ct * 16, acc[i][rt], ldf,
+                                wmma::mem_row_major);
+  }
+}
+
+// F[:, 0 : ncols] = A[:, 0 : K] @ B[0 : K, 0 : ncols]
+template <int NT>
+__device__ void product(const bf16* A, int lda, int K, const bf16* B, int ldb, int ncols,
+                        float* F, int ldf) {
+  Acc acc[NT][2];
+  zero(acc);
+  mma_tiles(acc, A, lda, K, B, ldb, ncols);
+  store_tiles(acc, F, ldf, ncols);
+  __syncthreads();
+}
+
+// H = act(F + bias) (the hidden layers' bias and GELU), bf16
+template <bool kTrain>
+__device__ void hidden_out(const float* F, int ldf, const bf16* bias, int ncols, bf16* H,
+                           int ldh) {
+  for (int i = threadIdx.x; i < kWideRows * ncols; i += blockDim.x) {
+    const int r = i / ncols, c = i - r * ncols;
+    H[r * ldh + c] =
+        __float2bfloat16_rn(hidden_act<kTrain>(F[r * ldf + c], __bfloat162float(bias[c])));
+  }
+  __syncthreads();
+}
+
+// F = rnd(rnd(F) + bias)
+__device__ void add_bias(float* F, int ldf, const bf16* bias, int C) {
+  for (int i = threadIdx.x; i < kWideRows * C; i += blockDim.x) {
+    const int r = i / C, c = i - r * C;
+    F[r * ldf + c] = rnd(rnd(F[r * ldf + c]) + __bfloat162float(bias[c]));
+  }
+  __syncthreads();
+}
+
+// out[r, c] = rnd(LN(F[r, :]) * gamma + beta) for the rows below `rows`, a
+// warp a row; F holds rounded values
+template <int C>
+__device__ void layernorm(const float* F, int ldf, const bf16* gamma, const bf16* beta,
+                          bf16* out, int ldo, int rows) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < kWideRows; r += kWideThreads / 32) {
+    const float* row = F + r * ldf;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += row[c];
+    const float mu = warp_sum(s) / C;
+    s = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = row[c] - mu;
+      s += d * d;
+    }
+    const float rs = rsqrtf(warp_sum(s) / C + 1e-5f);
+    if (r < rows)
+      for (int c = lane; c < C; c += 32)
+        out[(size_t)r * ldo + c] = __float2bfloat16_rn(
+            (row[c] - mu) * rs * __bfloat162float(gamma[c]) + __bfloat162float(beta[c]));
+  }
+  __syncthreads();
+}
+
+// G[r, h] = rnd(sigmoid((a[r, :] @ wqk[:, h]) * scale)), a warp a row
+template <int C>
+__device__ void gate(const bf16* A, int lda, const bf16* wqk, float scale, float* G) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < kWideRows; r += kWideThreads / 32) {
+    float s[kHeads] = {};
+    for (int c = lane; c < C; c += 32) {
+      const float v = __bfloat162float(A[r * lda + c]);
+#pragma unroll
+      for (int hd = 0; hd < kHeads; ++hd) s[hd] += v * __bfloat162float(wqk[c * kHeads + hd]);
+    }
+#pragma unroll
+    for (int hd = 0; hd < kHeads; ++hd) {
+      const float t = warp_sum(s[hd]);
+      if (lane == 0) G[r * kHeads + hd] = rnd(sigmoid(t * scale));
+    }
+  }
+  __syncthreads();
+}
+
+// t4 = gated(a, g, m, bp); with `mlp`, t5 = rnd(t4 + rnd(rnd(F) + bm2)); into F
+template <int C>
+__device__ void residual(float* F, int ldf, const bf16* A, int lda, const float* G,
+                         const bf16* m, const bf16* bp, const bf16* bm2) {
+  for (int i = threadIdx.x; i < kWideRows * C; i += blockDim.x) {
+    const int r = i / C, c = i - r * C;
+    float gt[kHeads], mv[kHeads];
+#pragma unroll
+    for (int hd = 0; hd < kHeads; ++hd) {
+      gt[hd] = G[r * kHeads + hd];
+      mv[hd] = __bfloat162float(m[hd * C + c]);
+    }
+    const float t4 = gated(__bfloat162float(A[r * lda + c]), gt, mv, __bfloat162float(bp[c]));
+    F[r * ldf + c] = bm2 == nullptr
+                         ? t4
+                         : rnd(t4 + rnd(rnd(F[r * ldf + c]) + __bfloat162float(bm2[c])));
+  }
+  __syncthreads();
+}
+
+template <bool kTrain, int C>
+__global__ void __launch_bounds__(kWideThreads, 1) wide_kernel(const Args a) {
+  constexpr int kDup = kTrain ? 2 : 1;
+  constexpr int NTC = (C / 16 + kWideWarps - 1) / kWideWarps;
+  constexpr int NTK = (kChunk / 16 + kWideWarps - 1) / kWideWarps;
+  constexpr int lx = ld_bf(C), lh = ld_bf(kChunk), lf = ld_f(C);
+  static_assert(C % 16 == 0 && C >= kChunk && kHidden == kChunk, "wide chain shapes");
+  extern __shared__ __align__(128) unsigned char wide_smem[];
+  bf16* X = reinterpret_cast<bf16*>(wide_smem);
+  bf16* T = X + kWideRows * lx;
+  bf16* H = T + kWideRows * lx;
+  float* F = reinterpret_cast<float*>(H + kWideRows * lh);
+  float* G = F + kWideRows * lf;
+
+  const int b = blockIdx.y, tok0 = blockIdx.x * kWideRows;
+  const int rows = min(kWideRows, a.N - tok0);
+  const bf16* xb = a.x + ((size_t)b * a.N + tok0) * C;
+  for (int i = threadIdx.x; i < kWideRows * (C / 8); i += blockDim.x) {
+    const int r = i / (C / 8), q = i - r * (C / 8);
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < rows) v = reinterpret_cast<const uint4*>(xb + (size_t)r * C)[q];
+    reinterpret_cast<uint4*>(X + r * lx)[q] = v;
+  }
+  __syncthreads();
+
+  // fc1 + GELU -> H; fc2 (eval: folded with patch_embed_v) -> F
+  product<NTK>(X, lx, C, a.w1, kHidden, kHidden, F, lf);
+  hidden_out<kTrain>(F, lf, a.b1, kHidden, H, lh);
+  product<NTC>(H, lh, kHidden, a.w2, C, C, F, lf);
+  add_bias(F, lf, a.b2, C);
+  if (kTrain) {  // t2 -> X, patch_embed_v -> F
+    for (int i = threadIdx.x; i < kWideRows * C; i += blockDim.x)
+      X[(i / C) * lx + i % C] = __float2bfloat16_rn(F[(i / C) * lf + i % C]);
+    __syncthreads();
+    product<NTC>(X, lx, C, a.wpe, C, C, F, lf);
+    add_bias(F, lf, a.bpe, C);
+  }
+  layernorm<C>(F, lf, a.g1, a.c1, T, lx, kWideRows);  // a -> T
+
+  for (int d = 0; d < kDup; ++d) {
+    const size_t pair = (size_t)b * kDup + d;
+    const bf16* m = a.m + pair * kHeads * C;
+    gate<C>(T, lx, a.wqk + pair * C * kHeads, a.scale, G);
+    residual<C>(F, lf, T, lx, G, m, a.bp, nullptr);  // t4 -> F
+    layernorm<C>(F, lf, a.g2, a.c2, X, lx, kWideRows);  // LN2 -> X
+
+    Acc acc[NTC][2];
+    zero(acc);
+    for (int k0 = 0; k0 < a.mh; k0 += kChunk) {
+      const int kc = min(kChunk, a.mh - k0);
+      product<NTK>(X, lx, C, a.wm1 + k0, a.mh, kc, F, lf);
+      hidden_out<kTrain>(F, lf, a.bm1 + k0, kc, H, lh);
+      mma_tiles(acc, H, lh, kc, a.wm2 + (size_t)k0 * C, C, C);
+      __syncthreads();  // every warp is done with H before the next chunk
+    }
+    store_tiles(acc, F, lf, C);
+    __syncthreads();
+    residual<C>(F, lf, T, lx, G, m, a.bp, a.bm2);  // t5 -> F
+    layernorm<C>(F, lf, a.g3, a.c3, a.y + (((size_t)d * a.B + b) * a.N + tok0) * C, C, rows);
+  }
+}
+
+template <bool kTrain, int C> int launch(const Args& a, cudaStream_t stream) {
+  const int tiles = (a.N + kWideRows - 1) / kWideRows;
+  if (a.B == 0 || tiles == 0) return 0;
+  const auto kernel = wide_kernel<kTrain, C>;
+  const size_t smem = smem_bytes(C);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(tiles, a.B), kWideThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wide
+
 template <bool kTrain> int launch(const Args& a, int C, cudaStream_t stream) {
-  return C == kWideC ? launch_width<kTrain, kWideC>(a, stream)
-                     : launch_width<kTrain, kNarrowC>(a, stream);
+  switch (C) {
+    case kWideC: return launch_width<kTrain, kWideC>(a, stream);
+    case kNarrowC: return launch_width<kTrain, kNarrowC>(a, stream);
+    case kHRNetC: return wide::launch<kTrain, kHRNetC>(a, stream);
+    case kOCRC: return wide::launch<kTrain, kOCRC>(a, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace chain

@@ -31,13 +31,18 @@
 //   on the accumulator fragments, and the MLP's hidden chunk goes from one
 //   product to the next in registers. That header's note gives the design
 //   and what bounds it. It takes C = 304 or 112, hidden 256, mlp_hidden a
-//   multiple of 64 and 4 heads.
+//   multiple of C and 4 heads; C = 720 and 512 (the HRNet and OCR features)
+//   go to that header's `wide` chain: tiles of 32 tokens, bf16 mma.sync
+//   products, the MLP's hidden walked in chunks.
 // - float32, `simt::fusion_kernel`: the tensor cores have no full-float
 //   mode (TF32 keeps ~3 digits), so this path runs on the CUDA cores:
 //   tiles of 16 tokens, each thread owns one output column and keeps the
 //   tile's 16 sums in registers, reading token rows from shared memory as
 //   float4 broadcasts; a grid of (tiles, B), the ragged last tile masked
-//   here. It serves float32 configurations and parity checks.
+//   here. The MLP walks its hidden kChunk columns a pass, so its shared
+//   memory stays inside a block's at C = 720 (155 KB); the second product's
+//   sums carry over the passes in shared memory, in the same order as one
+//   pass would add them. It serves float32 configurations and parity checks.
 //
 // In the float32 kernel each LayerNorm is a per-token warp reduction over
 // the C channels.
@@ -66,7 +71,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-enum Epilogue { kBias, kBiasGelu, kBiasResidual };
+enum Epilogue { kBias, kBiasGelu, kBiasResidual, kSum };
 
 // ---------------------------------------------------------------------------
 // float32 on the CUDA cores
@@ -75,24 +80,27 @@ namespace simt {
 
 constexpr int kTokens = 16;   // tokens per block
 constexpr int kThreads = 320; // 10 warps: one pass over C = 304 columns
+constexpr int kChunk = 256;   // the MLP's hidden columns a pass
 
-// out[t, j] = epilogue(sum_k in[t, k] * W[k, j]) for the tile's rows.
-// in: [kTokens, K] shared; W: [K, n_out] row-major global; out and res:
-// [kTokens, n_out] shared. K is a multiple of 4.
+// out[t, j] = epilogue(sum_k in[t, k] * W[k, j]) for the tile's rows, the
+// sum started from out[t, j] where `carry` (a later pass of a K walked in
+// parts). in: [kTokens, K] shared; W: [K, n_out] global, rows ldw apart;
+// out and res: [kTokens, n_out] shared. K is a multiple of 4.
 template <int EPI>
 __device__ void tile_matmul(const float* __restrict__ in, int K, const float* __restrict__ W,
-                            const float* __restrict__ bias, int n_out,
-                            const float* __restrict__ res, float* __restrict__ out) {
+                            int ldw, const float* __restrict__ bias, int n_out,
+                            const float* __restrict__ res, float* __restrict__ out,
+                            bool carry = false) {
   for (int j = threadIdx.x; j < n_out; j += blockDim.x) {
     float acc[kTokens];
 #pragma unroll
-    for (int t = 0; t < kTokens; ++t) acc[t] = 0.f;
+    for (int t = 0; t < kTokens; ++t) acc[t] = carry ? out[t * n_out + j] : 0.f;
     const float* wcol = W + j;
     for (int k = 0; k < K; k += 4) {
-      const float w0 = wcol[(size_t)(k + 0) * n_out];
-      const float w1 = wcol[(size_t)(k + 1) * n_out];
-      const float w2 = wcol[(size_t)(k + 2) * n_out];
-      const float w3 = wcol[(size_t)(k + 3) * n_out];
+      const float w0 = wcol[(size_t)(k + 0) * ldw];
+      const float w1 = wcol[(size_t)(k + 1) * ldw];
+      const float w2 = wcol[(size_t)(k + 2) * ldw];
+      const float w3 = wcol[(size_t)(k + 3) * ldw];
 #pragma unroll
       for (int t = 0; t < kTokens; ++t) {
         const float4 a = *reinterpret_cast<const float4*>(in + t * K + k);
@@ -106,6 +114,10 @@ __device__ void tile_matmul(const float* __restrict__ in, int K, const float* __
     }
 #pragma unroll
     for (int t = 0; t < kTokens; ++t) {
+      if (EPI == kSum) {
+        out[t * n_out + j] = acc[t];
+        continue;
+      }
       float v = acc[t] + bias[j];
       if (EPI == kBiasGelu) v = gelu(v);
       if (EPI == kBiasResidual) v = res[t * n_out + j] + v;
@@ -139,7 +151,8 @@ fusion_kernel(const float* __restrict__ x, const float* __restrict__ wqk,
               const float* __restrict__ m, Weights w, float* __restrict__ out, int N,
               int C, int hidden, int mlp_hidden, int heads, float scale) {
   extern __shared__ __align__(16) float fsmem[];
-  const int h_width = hidden > mlp_hidden ? hidden : mlp_hidden;
+  const int chunk = mlp_hidden < kChunk ? mlp_hidden : kChunk;
+  const int h_width = hidden > chunk ? hidden : chunk;
   float* X = fsmem;                      // x, then LN2 output
   float* A = X + kTokens * C;            // p -> a -> t5 -> out
   float* T4 = A + kTokens * C;           // residual after the gate
@@ -156,9 +169,10 @@ fusion_kernel(const float* __restrict__ x, const float* __restrict__ wqk,
     X[i] = (i / C) < n_valid ? x[base + i] : 0.f;
   __syncthreads();
 
-  tile_matmul<kBiasGelu>(X, C, (const float*)w.w1, (const float*)w.b1, hidden, nullptr, H);
+  tile_matmul<kBiasGelu>(X, C, (const float*)w.w1, hidden, (const float*)w.b1, hidden, nullptr,
+                         H);
   __syncthreads();
-  tile_matmul<kBias>(H, hidden, (const float*)w.w2f, (const float*)w.b2f, C, nullptr, A);
+  tile_matmul<kBias>(H, hidden, (const float*)w.w2f, C, (const float*)w.b2f, C, nullptr, A);
   __syncthreads();
   tile_layernorm(A, (const float*)w.n1s, (const float*)w.n1b, C, A);
   __syncthreads();
@@ -186,10 +200,19 @@ fusion_kernel(const float* __restrict__ x, const float* __restrict__ wqk,
 
   tile_layernorm(T4, (const float*)w.n2s, (const float*)w.n2b, C, X);
   __syncthreads();
-  tile_matmul<kBiasGelu>(X, C, (const float*)w.wm1, (const float*)w.bm1, mlp_hidden, nullptr, H);
-  __syncthreads();
-  tile_matmul<kBiasResidual>(H, mlp_hidden, (const float*)w.wm2, (const float*)w.bm2, C, T4, A);
-  __syncthreads();
+  // the MLP, `chunk` hidden columns a pass; Wm2's sums carry over in A
+  for (int k0 = 0; k0 < mlp_hidden; k0 += chunk) {
+    const int kc = mlp_hidden - k0 < chunk ? mlp_hidden - k0 : chunk;
+    tile_matmul<kBiasGelu>(X, C, (const float*)w.wm1 + k0, mlp_hidden, (const float*)w.bm1 + k0,
+                           kc, nullptr, H);
+    __syncthreads();
+    const float* wm2 = (const float*)w.wm2 + (size_t)k0 * C;
+    if (k0 + kc < mlp_hidden)
+      tile_matmul<kSum>(H, kc, wm2, C, nullptr, C, nullptr, A, k0 > 0);
+    else
+      tile_matmul<kBiasResidual>(H, kc, wm2, C, (const float*)w.bm2, C, T4, A, k0 > 0);
+    __syncthreads();
+  }
   tile_layernorm(A, (const float*)w.n3s, (const float*)w.n3b, C, A);
   __syncthreads();
 
@@ -197,7 +220,8 @@ fusion_kernel(const float* __restrict__ x, const float* __restrict__ wqk,
 }
 
 size_t smem_bytes(int C, int hidden, int mlp_hidden, int heads) {
-  const int h_width = hidden > mlp_hidden ? hidden : mlp_hidden;
+  const int chunk = mlp_hidden < kChunk ? mlp_hidden : kChunk;
+  const int h_width = hidden > chunk ? hidden : chunk;
   return sizeof(float) * ((size_t)kTokens * (3 * C + h_width + heads));
 }
 
@@ -226,8 +250,8 @@ extern "C" {
 // array of that type: x/out [B, N, C], wqk [B, C, heads], m [B, heads, C],
 // w1 [C, hidden], w2f [hidden, C], wm1 [C, mlp_hidden], wm2 [mlp_hidden, C]
 // and the vectors. float32 needs C, hidden and mlp_hidden to be multiples
-// of 4; bf16 needs C = 304 or 112, hidden = 256, mlp_hidden a multiple of
-// 64 and heads = 4 (chain::supported). Returns the launch's cudaError_t (0
+// of 4; bf16 needs C = 304, 112, 720 or 512, hidden = 256, mlp_hidden a
+// multiple of C and heads = 4 (chain::supported). Returns the launch's cudaError_t (0
 // on success).
 int cavp_fused_visual_fusion(int dtype, const void* x, const void* wqk, const void* m,
                              const void* w1, const void* b1, const void* w2f,

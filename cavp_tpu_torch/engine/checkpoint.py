@@ -78,7 +78,12 @@ def load_model_variables(path: str, model: torch.nn.Module) -> Dict[str, List[st
     fill (BatchNorm's ``num_batches_tracked`` is not a weight and is not
     listed), the file's tensors the model has no place for, and the names
     loaded. A tensor whose shape differs from its place raises
-    ``ValueError``. An orbax directory raises ``NotImplementedError``."""
+    ``ValueError``. An orbax directory raises ``NotImplementedError``.
+
+    The port's names are the reference's for every ``seg_model`` (the JAX
+    package's loader takes ``seg_model`` to pick its name translation,
+    ``cavp_tpu/engine/checkpoint.py:161-176``): the model built for
+    ``--seg_model`` decides what the file must hold."""
     _refuse_directory(path)
     sd = {(k[len("module."):] if k.startswith("module.") else k): v
           for k, v in load_torch_checkpoint(path).items()}

@@ -60,7 +60,12 @@ from cavp_tpu_torch.metrics import (
 )
 from cavp_tpu_torch.device import resolve_device
 from cavp_tpu_torch.engine.state import TrainState
-from cavp_tpu_torch.losses import corocl_loss, cross_entropy
+from cavp_tpu_torch.losses import (
+    av_contrast_loss,
+    corocl_loss,
+    cross_entropy,
+    pixel_contrast_loss,
+)
 from cavp_tpu_torch.models.cavp import map_to_tokens, tokens_to_map
 from cavp_tpu_torch.models.soundbank import (
     overwrite_from_bank,
@@ -103,6 +108,14 @@ def make_train_step(model, optimizers, config, *, variant: str = "avss") -> Call
     for ``vpo_stereo``). Without them the draws come from
     ``state.generator``.
 
+    The HRNet and OCR heads drop whole channels in train mode: their keep
+    mask (``CAVP.channel_dropout``: [B, width]) is ``batch["drop_mask"]``
+    or a draw from the generator. ``config.extra_losses`` adds
+    ``"av_contrast"`` and ``"pixel_contrast"`` at weight ``config.loss_w``
+    (metrics ``loss/l_av_contrast``, ``loss/l_pixel_contrast``); the pixel
+    sampler's draws are ``batch["pixel_contrast_scores"]`` [B, 4, 2, h*w]
+    or the generator's.
+
     ``variant``: ``"avss"``; ``"vpo_mono"`` (the wave bank and the
     overwrite, the tower on the 2B clips); ``"vpo_stereo"`` (the overwrite
     of the labels only, without the background-only samples, no bank, the
@@ -114,9 +127,10 @@ def make_train_step(model, optimizers, config, *, variant: str = "avss") -> Call
         return _make_baseline_train_step(model, optimizers)
     if variant not in ("avss", "vpo_mono", "vpo_stereo"):
         raise ValueError(f"unknown train-step variant {variant!r}")
-    if getattr(config, "extra_losses", None):
-        raise NotImplementedError(
-            "extra_losses are not ported yet (ROADMAP.md Queue 1 item 7)")
+    extra = tuple(getattr(config, "extra_losses", ()) or ())
+    unknown = set(extra) - {"av_contrast", "pixel_contrast"}
+    if unknown:
+        raise ValueError(f"unknown extra_losses {sorted(unknown)}")
     n_frames = config.mel_frames
     plain_avss = config.avsbench_split == "all" and config.setup != "avss_binary"
     # the wave bank: avss (but for the binary and single-subset runs) and
@@ -133,6 +147,7 @@ def make_train_step(model, optimizers, config, *, variant: str = "avss") -> Call
     use_fused_fusion = (config.use_pallas_fusion_train
                         and getattr(model, "seg_model", "") == "DeepLabV3Plus")
     dedup_audio = variant == "avss" and config.audio_backbone == "vgg" and config.audio_dedup
+    dropout = getattr(model, "channel_dropout", None)
 
     def train_step(state: TrainState, batch, epoch) -> Tuple[TrainState, Dict]:
         if state.model is not model or state.optimizers is not optimizers:
@@ -213,6 +228,15 @@ def make_train_step(model, optimizers, config, *, variant: str = "avss") -> Call
         gt_shuffle = torch.where(if_match[:, None, None], pix_label,
                                  torch.zeros_like(pix_label))
 
+        # the head's channel-dropout keep mask (HRNet, OCR)
+        drop_mask = None
+        if dropout is not None:
+            site, rate, width = dropout
+            rows = B if site == "feature" or model.cls_matched_only else 2 * B
+            drop_mask = batch.get("drop_mask")
+            if drop_mask is None:
+                drop_mask = torch.rand(rows, width, generator=gen, device=dev) < 1.0 - rate
+
         # --- forward (NCHW inside) ---
         optimizers.zero_grad()
         model.train()
@@ -230,8 +254,10 @@ def make_train_step(model, optimizers, config, *, variant: str = "avss") -> Call
             head_in = fused2b[:B] if model.cls_matched_only else fused2b
             logits2b = model.forward_cls(head_in, image_nchw.shape[-2:])
         else:
-            logits2b, fused2b, _ = model(image_nchw, audio_nchw, eval_mode=False,
-                                         audio_gather_idx=audio_gather_idx)
+            logits2b, fused2b, pack = model(image_nchw, audio_nchw, eval_mode=False,
+                                            audio_gather_idx=audio_gather_idx,
+                                            drop_mask=drop_mask)
+            fea_a = pack["audio"]
         output = logits2b[:B].permute(0, 2, 3, 1)
         embeds = fused2b.permute(0, 2, 3, 1)  # [2B, h, w, C], a view
         l_ce = cross_entropy(output, pix_label)
@@ -241,6 +267,20 @@ def make_train_step(model, optimizers, config, *, variant: str = "avss") -> Call
             max_views=config.max_view, class_slots=config.class_slots,
             scores=batch.get("corocl_scores"), generator=gen)
         loss = l_ce + config.corocl_w * l_ctr
+        # the reference Losser's dormant objectives, weighted by loss_w
+        if "av_contrast" in extra:
+            h, w = embeds.shape[1:3]
+            l_av = av_contrast_loss(embeds[:B].reshape(B, h * w, -1), fea_a[:B], pix_label,
+                                    temperature=config.cl_temp, feat_hw=(h, w))
+            loss = loss + config.loss_w * l_av
+            aux = {**aux, "loss/l_av_contrast": l_av.detach()}
+        if "pixel_contrast" in extra:
+            l_px = pixel_contrast_loss(embeds[:B], output, pix_label,
+                                       temperature=config.cl_temp,
+                                       scores=batch.get("pixel_contrast_scores"),
+                                       generator=gen)
+            loss = loss + config.loss_w * l_px
+            aux = {**aux, "loss/l_pixel_contrast": l_px.detach()}
 
         # --- backward and both optimizers ---
         loss.backward()

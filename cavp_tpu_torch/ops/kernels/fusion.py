@@ -19,9 +19,11 @@ dtype at the same points as ``_fusion_kernel``, in the kernel and in
 :func:`token_chain_reference` alike.
 
 The bf16 kernel is the token chain of ``csrc/fusion_chain_sm90.cuh``
-(shared with the train kernel's forward): :data:`TILE_TOKENS` tokens a
-tile on a persistent grid (:func:`tile_walk`), and the shapes of
-:func:`chain_supported`.
+(shared with the train kernel's forward), for the shapes of
+:func:`chain_supported`: at C = 304 and 112 :data:`TILE_TOKENS` tokens a
+tile on a persistent grid (:func:`tile_walk`); at the HRNet and OCR
+features' 720 and 512 the header's ``wide`` chain, :data:`WIDE_TILE_TOKENS`
+tokens a block on a grid of (tiles, B).
 
 :func:`fused_visual_fusion` takes the plain version only for tensors on
 the CPU. For a CUDA tensor it launches the kernel or raises.
@@ -78,13 +80,15 @@ def _layernorm(x, scale, bias):
     return y.to(x.dtype)
 
 
-# the bf16 token chain's shapes and tile (csrc/fusion_chain_sm90.cuh:
-# kWideC, kNarrowC, kHidden, kHeads, kRows); its MLP walks the hidden in
-# chunks of C columns
-CHAIN_WIDTHS = (304, 112)
+# the bf16 token chain's shapes and tiles (csrc/fusion_chain_sm90.cuh:
+# kWideC, kNarrowC, kHRNetC, kOCRC, kHidden, kHeads, kRows, kWideRows); at
+# 304 and 112 its MLP walks the hidden in chunks of C columns, at 720 and
+# 512 in chunks of 256
+CHAIN_WIDTHS = (304, 112, 720, 512)
 CHAIN_HIDDEN = 256
 CHAIN_HEADS = 4
 TILE_TOKENS = 64
+WIDE_TILE_TOKENS = 32
 
 
 def chain_supported(C: int, hidden: int, mlp_hidden: int, heads: int) -> bool:
@@ -95,7 +99,8 @@ def chain_supported(C: int, hidden: int, mlp_hidden: int, heads: int) -> bool:
 
 
 def tile_walk(B: int, N: int, sms: int) -> List[List[Tuple[int, int, int]]]:
-    """The bf16 chain's persistent walk, as the kernel takes it: one block
+    """The bf16 chain's persistent walk at C = 304 and 112, as the kernel
+    takes it: one block
     per SM (or per tile, where there are fewer), block ``i`` taking tiles
     ``i, i + grid, ...`` of the ``B * ceil(N / TILE_TOKENS)`` (image, tile)
     pairs in image-major order. Returns each block's list of (image, first

@@ -150,7 +150,23 @@ from the repository root, on a machine with a CUDA GPU and ``nvcc``. It:
     moved under vpo_mono and not under vpo_stereo) and the plain arm (no
     launch, its first step within phase 7's limit); it prints the steps on
     the stream (CUDA events), steps/s and frames/s with the loader, the
-    loader's wait share, the peak memory and the validation's frames/s.
+    loader's wait share, the peak memory and the validation's frames/s;
+16. runs the seg-model zoo at full width (``--seg_model HRNet``: HRNet-W48,
+    latent 720; ``OCR`` on HRNet-W48, 512; ``PVT``: PVT-v2 b5, 112) at
+    224x224, bf16, 71 classes: for each head K1 at [120, 3136, C] on the
+    head's own features against its plain version (phase 3's limits, two
+    launches bit-equal; timed beside the plain version and the module path,
+    with its bound), K4 on the head's own logits bit-equal to the separable
+    arm, the eval step with every kernel flag (K1, K3 and K4 once a step, K5
+    and K2 never: they are for DeepLabV3+ on ResNet) and its frames/s, the
+    all-flags masks against the plain arm's; then ``python -m
+    cavp_tpu_torch.test_avs_semantic --seg_model HRNet`` with every eval
+    kernel flag on a synthetic test split and the HRNet model's ``.pth``, a
+    process (exit 0, the metric line, a clean strict load); then two train
+    steps of ``main_avss_resize --seg_model OCR`` (224x224, batch 16, every
+    kernel flag) in this process: the module arm (no K2 launch), K3 on every
+    step, K1 at C = 512 and K4 on the validation's eval steps, every
+    optimizer group moved, the peak memory.
 
 The weights are random, drawn from a seed, and made non-degenerate (see
 ``random_weights``) so the comparisons are not empty. The numbers printed
@@ -2629,6 +2645,256 @@ def vpo_phase(device, repo: Path) -> dict:
     return out
 
 
+ZOO_HEADS = (("HRNet", 720), ("OCR", 512), ("PVT", 112))  # seg_model, its fusion width
+# the zoo's all-flags masks against the plain arm's: the seeded random heads
+# leave the top two of the 71 logits closer than the ResNet-50 model does,
+# so the bf16 fusion stage's rounding (K1's chain against the module path's)
+# flips more pixels (HRNet: 1.5%, measured) than phase 11's 0.2%
+ZOO_MASK_AGREEMENT = 0.97
+ZOO_TRAIN_VIDEOS = 32  # 2 steps an epoch at batch 16
+ZOO_TEST_VIDEOS = 8
+
+
+def zoo_head_check(seg: str, width: int, device) -> dict:
+    """Phase 16 (a), one head of the seg-model zoo at full width (HRNet-W48,
+    OCR on HRNet-W48, PVT-v2 b5), 224x224, bf16, 71 classes, seeded random
+    weights: K1 at [120, 3136, C] on the head's own features against its
+    plain version (phase 3's contract), two launches bit-equal, timed beside
+    the plain version and the module path; K4 at 71 classes on the head's
+    own classifier logits, bit-equal to the separable arm; the eval step
+    with every kernel flag on (launches: K1, K3 and K4 once a step, K5
+    never, since it is for the DeepLabV3+ ResNet tower) and its frames/s;
+    the masks of the all-flags arm against the plain arm's."""
+    import torch
+
+    from cavp_tpu_torch.config import get_config
+    from cavp_tpu_torch.data.synthetic import synthetic_eval_batch
+    from cavp_tpu_torch.engine.loops import (
+        eval_metrics_init, make_eval_pred_forward, make_eval_step, preprocess_audio)
+    from cavp_tpu_torch.engine.runner import build_model
+    from cavp_tpu_torch.models.cavp import map_to_tokens, tokens_to_map
+    from cavp_tpu_torch.ops.interp import interpolate_bilinear_separable
+    from cavp_tpu_torch.ops.kernels.fusion import (
+        _launch as fusion_launch, fused_visual_fusion, fused_visual_fusion_reference,
+        fusion_operands)
+    from cavp_tpu_torch.ops.kernels.upsample_argmax import upsample_argmax
+
+    config = get_config("avss").replace(image_width=224, image_height=224,
+                                        compute_dtype="bfloat16", seg_model=seg)
+    model = build_model(config, device)
+    random_weights(model, config, device)
+    require(model.latent_dim == width, f"{seg}: latent {model.latent_dim}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = {k: torch.from_numpy(v).to(device)
+            for k, v in synthetic_eval_batch(config, EVAL_BATCH, seed=SEED + 60).items()}
+    out = {}
+    with torch.inference_mode():
+        audio = preprocess_audio(data["waveform"], n_frames=config.mel_frames)
+        image = data["image"].permute(0, 3, 1, 2)
+        fea_v = model.forward_visual_feature(image)
+        fea_a = model.forward_audio_feature(audio.permute(0, 3, 1, 2))
+        x = map_to_tokens(fea_v).contiguous()
+        require(tuple(x.shape) == (EVAL_BATCH, 3136, width), f"{seg}: tokens {list(x.shape)}")
+        got = fused_visual_fusion(model, x, fea_a)
+        again = fused_visual_fusion(model, x, fea_a)
+        ref = fused_visual_fusion_reference(model, x, fea_a)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        ok = (float(err.max()) <= BF16_MAX_ABS and float(err.mean()) <= BF16_MEAN_ABS
+              and bool(torch.equal(got, again)) and bool(torch.isfinite(got).all()))
+        print(f"[zoo] {seg}: K1 on the head's features {list(x.shape)} bf16: max_abs_err "
+              f"{float(err.max()):.3e} mean {float(err.mean()):.3e} (max {BF16_MAX_ABS}, mean "
+              f"{BF16_MEAN_ABS}: {'ok' if ok else 'FAIL'}); two launches bit-equal")
+        require(ok, f"{seg}: K1 disagrees with its plain version")
+        out["err"] = float(err.max())
+        side = 56
+        ops = fusion_operands(model, fea_a, torch.bfloat16)
+        arms = {"kernel": lambda: fused_visual_fusion(model, x, fea_a),
+                "launch": lambda: fusion_launch(x, ops, 4),
+                "plain": lambda: fused_visual_fusion_reference(model, x, fea_a),
+                "module": lambda: model.forward_fusion(tokens_to_map(x, side, side), fea_a)}
+        times = {k: [] for k in arms}
+        for arm in ("plain", "kernel", "launch", "module", "module", "launch", "kernel", "plain"):
+            times[arm].append(cuda_ms(arms[arm], 3))
+        for k, v in times.items():
+            out[f"{k}_ms"] = statistics.median(v)
+        pre, half = chain_flops_per_token(width, 256, 4 * width, 4)
+        tokens = EVAL_BATCH * 3136
+        flops = tokens * (pre - 2 * width * width + half)  # fc2 folded: one C x C fewer
+        out["bound_ms"], out["bound_by"] = bound_ms(flops, 2 * tokens * width * 2)
+        fmt = lambda k: " / ".join(f"{t:.2f}" for t in times[k])
+        print(f"[zoo] {seg}: K1 at [{EVAL_BATCH},3136,{width}] bf16, median of 3 (plain, "
+              f"kernel, launch, module, module, launch, kernel, plain): wrapper {fmt('kernel')} "
+              f"ms, launch {fmt('launch')} ms, plain {fmt('plain')} ms, module path "
+              f"{fmt('module')} ms; bound {out['bound_ms']:.3f} ms ({out['bound_by']}; "
+              f"{flops / out['launch_ms'] / 1e9:.1f} TFLOP/s in the launch); {card_line()}")
+
+        head = model.segment.upsample(tokens_to_map(got, side, side))
+        head = head.permute(0, 2, 3, 1).contiguous()
+        require(head.shape[-1] == config.num_classes, f"{seg}: head {list(head.shape)}")
+        mask = upsample_argmax(head, (224, 224))
+        sep = interpolate_bilinear_separable(head, (224, 224)).argmax(-1).to(torch.int32)
+        require(bool(torch.equal(mask, sep)), f"{seg}: K4 differs from the separable arm")
+        out["argmax_ms"] = cuda_ms(lambda: upsample_argmax(head, (224, 224)), 5)
+        print(f"[zoo] {seg}: K4 on the head's logits {list(head.shape)} -> 224x224 bf16: "
+              f"bit-equal to the separable arm, {out['argmax_ms']:.3f} ms")
+        del got, again, ref, x, fea_v, fea_a, head
+
+    # the eval step with every flag on: its launches and frames/s
+    step = make_eval_step(model, config.replace(**ALL_FLAGS))
+    metrics = step(eval_metrics_init(config.num_classes, device), data)
+    torch.cuda.synchronize()
+    reset_launches()
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        metrics = step(metrics, data)
+    torch.cuda.synchronize()
+    out["fps"] = EVAL_BATCH * iters / (time.perf_counter() - t0)
+    launches = read_launches()
+    want = dict.fromkeys(launches, 0)
+    want.update(mel=iters, fusion=iters, argmax=iters)
+    require(launches == want, f"{seg}: {iters} eval steps launched {launches}")
+    pixels = (iters + 1) * EVAL_BATCH * 224 * 224
+    require(float(metrics.miou_all.labeled) == pixels, f"{seg}: lost pixels")
+    out["launches"] = iters
+    with torch.inference_mode():
+        audio = preprocess_audio(data["waveform"], n_frames=config.mel_frames,
+                                 use_pallas=True)
+        m_all = make_eval_pred_forward(model, config.replace(**ALL_FLAGS))(data["image"], audio)
+        audio = preprocess_audio(data["waveform"], n_frames=config.mel_frames)
+        m_plain = make_eval_pred_forward(model, config.replace(use_pallas_fusion=False))(
+            data["image"], audio)
+    agree = float((m_all == m_plain).float().mean())
+    out["agree"] = agree
+    print(f"[zoo] {seg}: {iters} eval steps at batch {EVAL_BATCH}, every kernel flag, launched "
+          f"{ {k: v for k, v in launches.items() if v} } (K2 and K5 none): "
+          f"{out['fps']:.1f} frames/s; masks agree with the plain arm on {100 * agree:.3f}% "
+          f"(limit {100 * ZOO_MASK_AGREEMENT}%); {card_line()}")
+    require(agree >= ZOO_MASK_AGREEMENT, f"{seg}: all-flags masks agree on only {agree:.4f}")
+    out["state_dict"] = ({k: v.detach().cpu() for k, v in model.state_dict().items()}
+                         if seg == "HRNet" else None)
+    del model, step, metrics, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_phase(device, repo: Path) -> dict:
+    """Phase 16: the seg-model zoo. Each head through ``zoo_head_check``;
+    then ``python -m cavp_tpu_torch.test_avs_semantic --seg_model HRNet``
+    with every eval kernel flag, a process on a synthetic test split of
+    ZOO_TEST_VIDEOS videos at 224x224 and the HRNet model's ``.pth``; then
+    ``main_avss_resize --seg_model OCR`` in this process, 224x224, batch 16,
+    bf16, every kernel flag, one epoch of 2 steps and the validation at
+    epoch 0: the module arm of the train step (K2 is for DeepLabV3+ only: no
+    launch), K3 on every step, K1 and K4 on every eval step, K5 never, every
+    optimizer group moved, peak memory. Returns its numbers."""
+    import os
+    import shutil
+
+    import torch
+
+    from cavp_tpu_torch import main_avss_resize
+    from cavp_tpu_torch.data.synthetic import make_synthetic_avss
+    from cavp_tpu_torch.engine import runner
+    from cavp_tpu_torch.engine.optim import GROUPS, label_params
+
+    t0 = time.perf_counter()
+    out = {seg: zoo_head_check(seg, width, device) for seg, width in ZOO_HEADS}
+    print(f"[zoo] the three heads' checks took {time.perf_counter() - t0:.1f} s")
+    root = repo / "build" / "chip_smoke_zoo"
+    shutil.rmtree(root, ignore_errors=True)
+    data = root / "data"
+    base = Path(make_synthetic_avss(str(data), num_videos=ZOO_TRAIN_VIDEOS, image_size=224,
+                                    num_classes=71, splits=("train",)))
+    train_rows = (base / "metadata.csv").read_text().splitlines()[1:]
+    make_synthetic_avss(str(data), num_videos=ZOO_TEST_VIDEOS, image_size=224, num_classes=71,
+                        splits=("test",))
+    rows = (base / "metadata.csv").read_text().splitlines()
+    (base / "metadata.csv").write_text("\n".join(rows + train_rows) + "\n")
+    pth = root / "hrnet.pth"
+    torch.save({"model": out["HRNet"].pop("state_dict")}, pth)
+    for seg, _ in ZOO_HEADS:
+        out[seg].pop("state_dict", None)
+
+    t0 = time.perf_counter()
+    args = ["--setup", "avss", "--seg_model", "HRNet", "--root_dataset_dir", str(data),
+            "--ckpt_path", str(pth), *[f"--{f}" for f in ALL_FLAGS]]
+    proc = subprocess.run([sys.executable, "-m", "cavp_tpu_torch.test_avs_semantic", *args],
+                          cwd=repo, capture_output=True, text=True, timeout=600)
+    lines = [ln.split(" | INFO | ")[-1] for ln in proc.stderr.splitlines() if "|ALL|" in ln]
+    require(proc.returncode == 0 and len(lines) == 1 and "checkpoint tensors" not in proc.stderr
+            and "did not fill" not in proc.stderr,
+            f"test_avs_semantic --seg_model HRNet: exit {proc.returncode}\n"
+            f"{proc.stderr[-4000:]}")
+    print(f"[zoo] python -m cavp_tpu_torch.test_avs_semantic --seg_model HRNet (every eval "
+          f"kernel flag, {ZOO_TEST_VIDEOS} test videos, the HRNet model's .pth loaded strictly) "
+          f"exit 0 in {time.perf_counter() - t0:.1f} s: {lines[0]}")
+
+    # two train steps of OCR through the training entry point, counted
+    real = dict(init_state=runner.init_state, run_validation=runner.run_validation)
+    rec = {}
+
+    def init_state(*a, **kw):
+        state = real["init_state"](*a, **kw)
+        rec["state"] = state
+        rec["start"] = {k: v.clone() for k, v in state.model.named_parameters()}
+        return state
+
+    def run_validation(*a, **kw):
+        stats = {}
+        res = real["run_validation"](*a, stats=stats, **kw)
+        rec["eval"] = stats
+        return res
+
+    runner.init_state, runner.run_validation = init_state, run_validation
+    here = os.getcwd()
+    os.chdir(root)
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        t0 = time.perf_counter()
+        main_avss_resize.main(["--setup", "avss", "--seg_model", "OCR", "--root_dataset_dir",
+                               str(data), "--epochs", "1", "--num_workers", "4",
+                               "--ignore_ckpt", *[f"--{f}" for f in TRAIN_FLAGS]],
+                              device=device, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = read_launches()
+        state = rec.pop("state")
+        labels = label_params(state.model)
+        moved = {labels[n] for n, p in state.model.named_parameters()
+                 if not torch.equal(p, rec["start"][n])}
+        require(state.model.seg_model == "OCR" and state.model.latent_dim == 512,
+                "the entry point did not build OCR")
+        del state, rec["start"]
+    finally:
+        os.chdir(here)
+        runner.init_state, runner.run_validation = real["init_state"], real["run_validation"]
+    n_eval = rec["eval"]["steps"]
+    want = {"mel": stats["steps"] + n_eval, "layer1": 0, "fusion": n_eval, "argmax": n_eval,
+            "fwd": 0, "stage_a": 0, "stage_b": 0, "reduce": 0, "f32": 0}
+    require(stats["steps"] == 2 and launches == want,
+            f"OCR training: {stats['steps']} train steps and {n_eval} eval steps launched "
+            f"{launches}, not {want}")
+    require(moved == set(GROUPS), f"OCR training: groups that did not move {set(GROUPS) - moved}")
+    out["train"] = dict(launches=launches, peak=peak, wall=wall, steps=stats["steps"],
+                        n_eval=n_eval)
+    print(f"[zoo] main_avss_resize --seg_model OCR (224x224, batch 16, bf16, every kernel "
+          f"flag), in process: {stats['steps']} train steps on the module arm (K2 launched "
+          f"{launches['fwd']}, K3 {launches['mel']} = {stats['steps']} train + {n_eval} eval "
+          f"steps), the validation's {n_eval} eval steps launched K1 {launches['fusion']} at "
+          f"C = 512, K4 {launches['argmax']}, K5 {launches['layer1']}; all {len(GROUPS)} "
+          f"optimizer groups moved; peak memory {peak:.2f} GiB; {wall:.1f} s with the model "
+          f"build and the validation; {card_line()}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2742,6 +3008,17 @@ def main() -> int:
     vpo_launches = {k: {v: vpo[v]["launches"][k] for v in ("vpo_mono", "vpo_stereo")}
                     for k in vpo["vpo_mono"]["launches"]}
 
+    # 16. the seg-model zoo: the counts are read from its runs only
+    zoo = zoo_phase(device, repo)
+    heads = [seg for seg, _ in ZOO_HEADS]
+    zoo_k1 = lambda key: {seg: zoo[seg][key] for seg in heads}
+    print(f"[zoo] K1 at [{EVAL_BATCH},3136,C] bf16, launch ms: "
+          + ", ".join(f"{seg} (C = {w}) {zoo[seg]['launch_ms']:.2f} (plain "
+                      f"{zoo[seg]['plain_ms']:.2f}, module {zoo[seg]['module_ms']:.2f}, bound "
+                      f"{zoo[seg]['bound_ms']:.3f})" for seg, w in ZOO_HEADS)
+          + "; eval frames/s at batch 120, every flag: "
+          + ", ".join(f"{seg} {zoo[seg]['fps']:.1f}" for seg in heads) + f"; {card_line()}")
+
     train_source = "cavp_tpu_torch/csrc/fusion_train_kernel.cu"
     print(json.dumps({"kernels": [
         {"name": "fused_visual_fusion", "route": "cuda",
@@ -2751,14 +3028,21 @@ def main() -> int:
          "ms": kres["ms"], "plain_ms": kres["plain_ms"],
          "bound_ms": kres["bound_ms"], "bound_by": kres["bound_by"],
          "library_ms": None, "launches_vpo": vpo_launches["fusion"],
-         "max_abs_err_vpo": vpo["kernels"]["fusion"]},
+         "max_abs_err_vpo": vpo["kernels"]["fusion"],
+         "launches_zoo": zoo_k1("launches"),
+         "launches_zoo_ocr_training": zoo["train"]["launches"]["fusion"],
+         "max_abs_err_zoo": zoo_k1("err"), "ms_zoo": zoo_k1("kernel_ms"),
+         "launch_ms_zoo": zoo_k1("launch_ms"), "plain_ms_zoo": zoo_k1("plain_ms"),
+         "module_ms_zoo": zoo_k1("module_ms"), "bound_ms_zoo": zoo_k1("bound_ms"),
+         "bound_by_zoo": zoo_k1("bound_by")},
         {"name": "fusion_train_fwd", "route": "cuda", "source": train_source,
          "replaces": "cavp_tpu/ops/pallas/fusion_train_kernel.py:280",
          "launches": train["launches"]["fwd"], "max_abs_err": tres["fwd_err"],
          "ms": tres["fwd_ms"], "plain_ms": tres["plain_fwd_ms"],
          "bound_ms": tres["fwd_bound"][0], "bound_by": tres["fwd_bound"][1],
          "library_ms": None, "launches_vpo": vpo_launches["fwd"],
-         "max_abs_err_vpo": vpo["kernels"]["fwd"]},
+         "max_abs_err_vpo": vpo["kernels"]["fwd"],
+         "launches_zoo_ocr_training": zoo["train"]["launches"]["fwd"]},
         {"name": "fusion_train_bwd", "route": "cuda", "source": train_source,
          "replaces": "cavp_tpu/ops/pallas/fusion_train_kernel.py:312",
          "launches": train["launches"]["stage_a"], "max_abs_err": tres["bwd_err"],
@@ -2788,7 +3072,9 @@ def main() -> int:
          "ms_in_a_row_vpo_32x48000": mres["vpo_b2b"],
          "plain_ms_vpo_32x48000": mres["vpo_plain"],
          "bound_ms_vpo_32x48000": mres["vpo_bound"][0],
-         "library_ms_vpo_32x48000": mres["vpo_library"]},
+         "library_ms_vpo_32x48000": mres["vpo_library"],
+         "launches_zoo": zoo_k1("launches"),
+         "launches_zoo_ocr_training": zoo["train"]["launches"]["mel"]},
         {"name": "upsample_argmax", "route": "cuda",
          "source": "cavp_tpu_torch/csrc/upsample_argmax_kernel.cu",
          "replaces": "cavp_tpu/ops/pallas/upsample_argmax_kernel.py:70",
@@ -2802,7 +3088,9 @@ def main() -> int:
          "library_ms_2_classes": ares["library_2"], "launches_vpo": vpo_launches["argmax"],
          "ms_22_classes": ares["kernel_22"], "plain_ms_22_classes": ares["plain_22"],
          "bound_ms_22_classes": ares["bound_22"][0],
-         "library_ms_22_classes": ares["library_22"]},
+         "library_ms_22_classes": ares["library_22"],
+         "launches_zoo": zoo_k1("launches"), "ms_zoo": zoo_k1("argmax_ms"),
+         "launches_zoo_ocr_training": zoo["train"]["launches"]["argmax"]},
         {"name": "fused_layer1", "route": "cuda",
          "source": "cavp_tpu_torch/csrc/layer1_kernel.cu",
          "replaces": "cavp_tpu/ops/pallas/layer1_kernel.py:153",
@@ -2810,7 +3098,8 @@ def main() -> int:
          "ms": lres["kernel"], "plain_ms": lres["plain"],
          "bound_ms": lres["bound"][0], "bound_by": lres["bound"][1],
          "library_ms": None, "launches_vpo": vpo_launches["layer1"],
-         "max_abs_err_vpo": vpo["kernels"]["layer1"]}]}))
+         "max_abs_err_vpo": vpo["kernels"]["layer1"],
+         "launches_zoo": 0}]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,17 @@ its plain PyTorch version; on the CPU the wrapper takes the plain
 version. Both it and the port's module path (``CAVP.forward_fusion``)
 are held against ``cavp_tpu.ops.pallas.fusion_kernel.fused_visual_fusion``
 run in interpret mode, on the same weights and inputs made from numpy
-seeds, at C = 304 with an aligned (8x8) and a ragged (7x9) token count.
+seeds, at C = 304 with an aligned (8x8) and a ragged (7x9) token count,
+and the wrapper at the HRNet and OCR features' C = 720 and 512 (a few
+tokens, float32 and bf16).
 
 Tolerance (f32): rtol 1e-4 / atol 5e-5, as tests/test_pallas_fusion.py —
 the Pallas kernel's rational erf is within 1.5e-7 of exact erf, which
-fc2 and the MLP sums amplify to a few e-5.
+fc2 and the MLP sums amplify to a few e-5. bf16: both sides round at the
+same points, so they differ where a float sum or the erf lands on the
+other side of a rounding boundary: at most 2 bf16 ulps of the output
+(|y| < 8: 0.0625) and a mean below 5e-3 (3.3e-3 seen at C = 720, a
+tenth of an ulp).
 """
 
 import re
@@ -76,32 +82,51 @@ class FusionSlice(nn.Module):
         self.cross_att = CrossAttention(c)
 
 
-@pytest.fixture(scope="module")
-def weights():
-    params = _jax_fusion_params(C, seed=0)
-    port = FusionSlice(C).eval()
+def _weights_at(c):
+    params = _jax_fusion_params(c, seed=0)
+    port = FusionSlice(c).eval()
     port.load_state_dict(state_dict_from_jax(params, {}), strict=True)
     return params, port
 
 
-def _inputs(b, h, w, seed=1):
+@pytest.fixture(scope="module")
+def weights():
+    return _weights_at(C)
+
+
+def _inputs(b, h, w, seed=1, c=C):
     rng = np.random.RandomState(seed)
-    return (rng.randn(b, h, w, C).astype(np.float32),
-            rng.randn(b, C).astype(np.float32))
+    return (rng.randn(b, h, w, c).astype(np.float32),
+            rng.randn(b, c).astype(np.float32))
 
 
-@pytest.mark.parametrize("hw", [(8, 8), (7, 9)])
-def test_wrapper_on_cpu_matches_jax_kernel(weights, hw):
-    params, port = weights
-    fea_v, fea_a = _inputs(2, *hw)
+# the case ids of C = 304 are those the cases had before the zoo's widths
+@pytest.mark.parametrize("c, hw, dtype", [
+    pytest.param(C, (8, 8), "float32", id="hw0"),
+    pytest.param(C, (7, 9), "float32", id="hw1"),
+    pytest.param(720, (3, 5), "float32", id="c720"),
+    pytest.param(512, (3, 5), "float32", id="c512"),
+    pytest.param(720, (3, 5), "bfloat16", id="c720_bf16"),
+    pytest.param(512, (3, 5), "bfloat16", id="c512_bf16"),
+])
+def test_wrapper_on_cpu_matches_jax_kernel(weights, c, hw, dtype):
+    params, port = weights if c == C else _weights_at(c)
+    fea_v, fea_a = _inputs(2, *hw, c=c)
     ref = np.asarray(jax_fusion.fused_visual_fusion(
-        params, jnp.asarray(fea_v), jnp.asarray(fea_a), interpret=True))
+        params, jnp.asarray(fea_v, dtype), jnp.asarray(fea_a, dtype),
+        interpret=True).astype(jnp.float32))
     launches = fusion.fused_visual_fusion.launches
-    tokens = torch.from_numpy(fea_v).reshape(2, hw[0] * hw[1], C)
-    got = fusion.fused_visual_fusion(port, tokens, torch.from_numpy(fea_a))
+    tdt = getattr(torch, dtype)
+    tokens = torch.from_numpy(fea_v).reshape(2, hw[0] * hw[1], c).to(tdt)
+    got = fusion.fused_visual_fusion(port, tokens, torch.from_numpy(fea_a).to(tdt))
     assert fusion.fused_visual_fusion.launches == launches == 0
-    assert got.shape == ref.shape and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    assert got.shape == ref.shape and got.dtype == tdt
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    else:
+        err = np.abs(got.float().numpy() - ref)
+        assert np.abs(ref).max() < 8 and err.max() <= 0.0625 and err.mean() < 5e-3, (
+            err.max(), err.mean())
 
 
 @pytest.mark.parametrize("hw", [(8, 8), (7, 9)])
@@ -264,15 +289,25 @@ def test_wrapper_checks_follow_the_chain_source():
     src = _chain_source()
     const = lambda name: int(re.search(r"constexpr int %s = (\d+);" % name, src).group(1))
     assert const("kRows") == fusion.TILE_TOKENS
-    assert (const("kWideC"), const("kNarrowC")) == fusion.CHAIN_WIDTHS
+    assert const("kWideRows") == fusion.WIDE_TILE_TOKENS
+    assert tuple(const(k) for k in ("kWideC", "kNarrowC", "kHRNetC", "kOCRC")) == \
+        fusion.CHAIN_WIDTHS
     assert const("kHidden") == fusion.CHAIN_HIDDEN
     assert const("kHeads") == fusion.CHAIN_HEADS
     body = re.search(r"inline bool supported\(int C, int hidden, int mlp_hidden, int heads\) "
                      r"\{(.*?)\}", src, re.S).group(1)
-    assert "kWideC" in body and "kNarrowC" in body and "mlp_hidden % C == 0" in body
+    assert all(k in body for k in ("kWideC", "kNarrowC", "kHRNetC", "kOCRC"))
+    assert "mlp_hidden % C == 0" in body
+    # each width has its launch: the 304 design's two, the wide chain's two
+    launch = re.search(r"template <bool kTrain> int launch\(const Args& a, int C, "
+                       r"cudaStream_t stream\) \{(.*?)\n\}", src, re.S).group(1)
+    assert "launch_width<kTrain, kWideC>" in launch and "launch_width<kTrain, kNarrowC>" in launch
+    assert "wide::launch<kTrain, kHRNetC>" in launch and "wide::launch<kTrain, kOCRC>" in launch
     assert fusion.chain_supported(304, 256, 1216, 4) and fusion.chain_supported(112, 256, 448, 4)
+    assert fusion.chain_supported(720, 256, 2880, 4) and fusion.chain_supported(512, 256, 2048, 4)
     for shape in ((320, 256, 1280, 4), (304, 128, 1216, 4), (304, 256, 1200, 4),
-                  (304, 256, 1216, 8), (304, 256, 0, 4)):
+                  (304, 256, 1216, 8), (304, 256, 0, 4), (720, 256, 2000, 4),
+                  (640, 256, 2560, 4)):
         assert not fusion.chain_supported(*shape), shape
     # the eval kernel's bf16 path goes through the chain and nothing else
     k1 = (Path(fusion.__file__).parents[2] / "csrc" / "fusion_kernel.cu").read_text()

@@ -221,30 +221,21 @@ def _report():
         module_errs=_delta_errors(k0, m0, start, sgd))
 
 
-@pytest.fixture(scope="module")
-def reports(tmp_path_factory):
-    """The float32 report and the float64 one, made once per run, one after
-    the other, each in a subprocess: each takes 5-9 GB while it is made.
-    Under xdist they are started in the background when this module is
-    collected (``torch_port_common.start_early`` below), so that they are
-    done before the JAX package's float64 drivers run. (Made side by side
-    they saved no time in the whole suite and cost it more memory.)"""
-    def both():
-        path = tmp_path_factory.mktemp("train_step_reports") / "reports.pt"
-        write_reports(path)
-        return torch.load(path, weights_only=False)
-
-    return once_per_run("train_step_reports", both)
-
-
-def write_reports(path):
-    """Both reports, each made in a subprocess, saved to ``path``: what the
-    background job started below runs."""
+def write_f32_report(path):
+    """The float32 report, made in a subprocess, saved to ``path``: what
+    one of the background jobs started below runs."""
     f32 = f"{path}.f32"
     runs = _f32_report(f32)
     os.unlink(f32)
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(dict(runs=runs, fp64=_fp64_report()), tmp)
+    torch.save(runs, tmp)
+    os.replace(tmp, path)
+
+
+def write_fp64_report(path):
+    """The float64 report, saved to ``path``: what the other runs."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(_fp64_report(), tmp)
     os.replace(tmp, path)
 
 
@@ -263,15 +254,24 @@ def _f32_report(path):
 
 
 @pytest.fixture(scope="module")
-def runs(reports):
-    return reports["runs"]
+def runs(tmp_path_factory):
+    """The float32 report, made once per run in a subprocess (5-9 GB while
+    it is made). Under xdist it and the float64 report are started side by
+    side in the background when this module is collected
+    (``torch_port_common.start_early`` below), so that they are done before
+    the JAX package's float64 drivers run; made one after the other, the
+    workers that reach this module's tests first waited for both."""
+    return once_per_run("train_step_f32", lambda: _f32_report(
+        tmp_path_factory.mktemp("train_step_f32") / "runs.pt"))
 
 
-start_early("train_step_reports", (
-    sys.executable, "-c",
-    "import sys; sys.path.insert(0, sys.argv[1]); import conftest; "
-    "import test_torch_port_train_step as t; t.write_reports(sys.argv[2])",
-    os.path.dirname(os.path.abspath(__file__))))
+for _name, _writer in (("train_step_f32", "write_f32_report"),
+                       ("train_step_fp64", "write_fp64_report")):
+    start_early(_name, (
+        sys.executable, "-c",
+        "import sys; sys.path.insert(0, sys.argv[1]); import conftest; "
+        f"import test_torch_port_train_step as t; t.{_writer}(sys.argv[2])",
+        os.path.dirname(os.path.abspath(__file__))))
 
 
 def _fp64_report():
@@ -286,8 +286,8 @@ def _fp64_report():
 
 
 @pytest.fixture(scope="module")
-def fp64(reports):
-    report = reports["fp64"]
+def fp64():
+    report = once_per_run("train_step_fp64", _fp64_report)
     assert report["dtype"] == "torch.float64" and report["jax_dtype"] == "float64"
     assert report["epochs"] == list(EPOCHS)
     # the levelling took effect: the float64 weights were the ones called,

@@ -452,9 +452,16 @@ def test_entry_point_validation_matches_jax(validation, entry):
 
 
 def test_extra_losses_and_unknown_variants_raise():
+    """An unknown variant raises; ``extra_losses`` (only ``Config.replace``
+    sets them, in both packages) are taken, and a name that is not one of
+    them raises."""
     cfg = get_config("vpo_ss")
     with pytest.raises(ValueError, match="variant"):
         loops.make_train_step(None, None, cfg, variant="vpo")
-    cfg.extra_losses = ["av_contrast"]  # only Config.replace sets them in the JAX package
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        loops.make_train_step(None, None, cfg, variant="vpo_mono")
+    assert cfg.extra_losses == [] and cfg.loss_w == 0.1
+    loops.make_train_step(None, None, cfg.replace(extra_losses=["av_contrast",
+                                                                "pixel_contrast"]),
+                          variant="vpo_mono")
+    with pytest.raises(ValueError, match="extra_losses"):
+        loops.make_train_step(None, None, cfg.replace(extra_losses=["ohem"]),
+                              variant="vpo_mono")
